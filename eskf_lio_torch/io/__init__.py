@@ -1,0 +1,1 @@
+"""io of the PyTorch port (mirrors `eskf_lio_tpu/io/`)."""

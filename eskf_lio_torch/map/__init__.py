@@ -1,0 +1,1 @@
+"""map of the PyTorch port (mirrors `eskf_lio_tpu/map/`)."""

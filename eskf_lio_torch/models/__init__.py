@@ -1,0 +1,1 @@
+"""models of the PyTorch port (mirrors `eskf_lio_tpu/models/`)."""

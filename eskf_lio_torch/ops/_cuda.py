@@ -1,0 +1,135 @@
+"""Build and bind the port's CUDA kernels (no JAX counterpart: Pallas
+kernels compile inside `jax.jit`).
+
+Each `csrc/*.cu` source has a plain C interface and becomes one shared
+library built by `nvcc` for `sm_90a` at first use, into `build/kernels/` at
+the root of the checkout, named by a hash of its source and flags, so a
+fresh checkout builds everything on its first call and later processes
+reuse the libraries.  The libraries are loaded with `ctypes`; every C entry
+point returns `cudaGetLastError()` and `CudaKernel.launch` raises when it is
+not 0.  Nothing here runs when a module is imported: the CPU tests import
+every module on hosts without `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# ctypes argument kinds for the C signatures
+PTR = ctypes.c_void_p
+INT = ctypes.c_int
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc was not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "eskf_lio_torch are built from source at first use"
+    )
+
+
+class CudaKernel:
+    """One `csrc/` source: its library, its C entry points and the number
+    of times the main path launched it."""
+
+    def __init__(self, name: str, source: str, functions: dict[str, list]):
+        self.name = name
+        self.source = CSRC_DIR / source
+        self.functions = functions  # C entry point -> ctypes argtypes
+        self.launches = 0
+        self.build_seconds: float | None = None
+        self.build_log = ""
+        self._lib: ctypes.CDLL | None = None
+        self._constants: dict[str, int] = {}
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(
+            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.name}-{digest}.so"
+
+    def lib(self) -> ctypes.CDLL:
+        if self._lib is None:
+            build([self])
+            lib = ctypes.CDLL(str(self.library_path()))
+            for fn, argtypes in self.functions.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            error_string = getattr(lib, f"{self.name}_error_string")
+            error_string.argtypes = [ctypes.c_int]
+            error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def query(self, fn: str) -> int:
+        """The value of a C entry point that launches nothing and returns a
+        constant of the source (a block size, a limit), read once."""
+        if fn not in self._constants:
+            self._constants[fn] = getattr(self.lib(), fn)()
+        return self._constants[fn]
+
+    def launch(self, fn: str, *args) -> None:
+        """Call a C entry point that launches the kernel on the given
+        stream, raise on a launch error, and count the launch."""
+        lib = self.lib()
+        err = getattr(lib, fn)(*args)
+        if err != 0:
+            msg = getattr(lib, f"{self.name}_error_string")(err).decode()
+            raise RuntimeError(f"{self.name}.{fn} failed: CUDA error {err}: {msg}")
+        self.launches += 1
+
+
+def build(kernels: list[CudaKernel]) -> dict[str, float]:
+    """Build every kernel whose library is missing: one `nvcc` per source,
+    all started together.  Returns the build seconds by kernel name (0 for
+    a library that was already built)."""
+    nvcc = None
+    jobs = []
+    for k in kernels:
+        out = k.library_path()
+        if out.exists():
+            if k.build_seconds is None:
+                k.build_seconds = 0.0
+            continue
+        nvcc = nvcc or nvcc_path()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((k, proc, tmp, out, time.perf_counter()))
+    for k, proc, tmp, out, t0 in jobs:
+        log, _ = proc.communicate()
+        k.build_seconds = time.perf_counter() - t0
+        k.build_log = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {k.source.name}:\n{log}")
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return {k.name: k.build_seconds for k in kernels}
+
+
+def stream_handle(device) -> int:
+    """The current PyTorch CUDA stream of `device`, as a C pointer value."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
