@@ -152,13 +152,14 @@ def align(
             corr = lookup_fn(pts_w)
         mu, cov_map_packed, hit = corr
         mask = scan.valid & hit
-        num_corr = mask.sum()
 
         if backend == "fused":
-            JTJ, JTr = gn_normal_eq.normal_equations_rotated(
+            # the kernel sums the mask too: no separate count launch
+            JTJ, JTr, num_corr = gn_normal_eq.normal_equations_rotated(
                 pts_w, covs_packed, R_tot, mu, cov_map_packed, mask
             )
         else:
+            num_corr = mask.sum()
             covs_w = R_tot @ covs @ R_tot.T
             JTJ, JTr = normal_equations(
                 pts_w, covs_w, mu, vm.unpack_cov(cov_map_packed), mask
@@ -184,5 +185,6 @@ def align(
         pose=Pose(R_tot, t_tot),
         iterations=it,
         converged=conv,
-        num_correspondences=num_corr,
+        # kernel A counts in f32 (exact below 2^24): one cast a scan
+        num_correspondences=num_corr.to(torch.int64),
     )

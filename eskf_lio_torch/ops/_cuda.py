@@ -48,14 +48,20 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One `csrc/` source: its library, its C entry points and the number
-    of times the main path launched it."""
+    """One `csrc/` source: its library, its C entry points, the number of
+    times the main path launched it, and the device buffers the kernel
+    keeps from call to call."""
 
     def __init__(self, name: str, source: str, functions: dict[str, list]):
         self.name = name
         self.source = CSRC_DIR / source
         self.functions = functions  # C entry point -> ctypes argtypes
         self.launches = 0
+        # (device index, stream) -> what the wrapper keeps there: a kernel
+        # that resets its own scratch (ticket, epoch, partial sums) gets one
+        # zeroed buffer per stream and reuses it, because calls on one
+        # stream are ordered
+        self.scratch: dict[tuple[int, int], object] = {}
         self.build_seconds: float | None = None
         self.build_log = ""
         self._lib: ctypes.CDLL | None = None
@@ -132,4 +138,9 @@ def stream_handle(device) -> int:
     """The current PyTorch CUDA stream of `device`, as a C pointer value."""
     import torch
 
+    # the raw handle without building a `torch.cuda.Stream` object: this is
+    # on the hot path of every kernel wrapper
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None and device.index is not None:
+        return raw(device.index)
     return torch.cuda.current_stream(device).cuda_stream

@@ -3,9 +3,11 @@
 Port of `eskf_lio_tpu/ops/segscan.py`, whose Pallas TPU kernel `_kernel`
 streams a segmented suffix scan over [W, B] blocks with a carry in VMEM
 scratch across its sequential grid.  Here the kernel is CUDA C++ for Hopper
-(`csrc/segscan.cu`, a deterministic three-phase tile scan: Hopper's blocks
-run in no order, so no carry rides across them), and it takes any N with no
-fallback.
+(`csrc/segscan.cu`: one launch, one read and one write of the rows; the
+carry between blocks becomes a read of the few rows after a tile where its
+last run ends there, and a deterministic look-ahead over the tiles'
+published sums where it does not, as the source note sets out), and it takes
+any N with no fallback.
 
 Contract: given `skey_sorted` [N] (sorted ascending) and `vals` [N, W],
 every segment's HEAD row (its first row) of the result holds the segment
@@ -25,11 +27,25 @@ KERNEL = CudaKernel(
     "segscan",
     "segscan.cu",
     {
-        "segscan_launch": [PTR, PTR, INT, INT, PTR, PTR, PTR],
+        "segscan_launch": [PTR, PTR, INT, INT, PTR, INT, PTR, PTR],
         "segscan_tile_rows": [],
         "segscan_max_width": [],
+        "segscan_scratch_bytes": [INT],
     },
 )
+
+def _scratch(device: torch.device, stream: int, tiles: int) -> tuple[torch.Tensor, int]:
+    """The kernel's scratch buffer on this device and stream and its capacity
+    in tiles.  The kernel keeps its ticket, epoch and published tile sums
+    there and resets them itself, so the buffer is zeroed once and reused."""
+    key = (device.index, stream)
+    held = KERNEL.scratch.get(key)
+    if held is None or held[1] < tiles:
+        cap = max(tiles, 1024)
+        n_bytes = KERNEL.lib().segscan_scratch_bytes(cap)
+        held = (torch.zeros(n_bytes // 8, dtype=torch.int64, device=device), cap)
+        KERNEL.scratch[key] = held
+    return held
 
 
 def segsum_sorted(skey_sorted: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -62,14 +78,13 @@ def segsum_sorted(skey_sorted: torch.Tensor, vals: torch.Tensor) -> torch.Tensor
     skey_sorted = skey_sorted.contiguous()
     vals = vals.contiguous()
     tile = KERNEL.query("segscan_tile_rows")
+    stream = stream_handle(vals.device)
+    scratch, cap = _scratch(vals.device, stream, (n + tile - 1) // tile)
     out = torch.empty_like(vals)
-    scratch = torch.empty(
-        ((n + tile - 1) // tile, w), dtype=vals.dtype, device=vals.device
-    )
     KERNEL.launch(
         "segscan_launch",
         skey_sorted.data_ptr(), vals.data_ptr(), n, w,
-        scratch.data_ptr(), out.data_ptr(), stream_handle(vals.device),
+        scratch.data_ptr(), cap, out.data_ptr(), stream,
     )
     return out
 

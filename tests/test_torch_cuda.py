@@ -62,13 +62,37 @@ def gn_rel_err(args, a, b):
     return (diff / scale.clamp(min=1e-30)).max().item()
 
 
-@pytest.mark.parametrize("n", [1, 255, 1000, 16384])
+@pytest.mark.parametrize("n", [1, 127, 129, 255, 1000, 16384, 100000])
 def test_gn_kernel_matches_plain(dev, n):
     args = gn_args(n, n, dev)
     before = gn.KERNEL.launches
     out = gn.normal_equations_rotated(*args)
     assert gn.KERNEL.launches == before + 1
     assert gn_rel_err(args, out, gn.normal_equations_rotated_ref(*args)) <= TOL
+    assert out[2].shape == () and int(out[2]) == int(args[5].sum())
+
+
+def test_gn_kernel_reuses_its_scratch(dev):
+    """Two calls share the kernel's scratch buffer (partial sums, ticket):
+    the first result, cloned, and the second are both right, and the first
+    result's own tensor is untouched by the second call."""
+    args_a, args_b = gn_args(16384, 11, dev), gn_args(5000, 12, dev)
+    first = gn.normal_equations_rotated(*args_a)
+    kept = tuple(x.clone() for x in first)
+    second = gn.normal_equations_rotated(*args_b)
+    assert gn_rel_err(args_a, kept, gn.normal_equations_rotated_ref(*args_a)) <= TOL
+    assert gn_rel_err(args_b, second, gn.normal_equations_rotated_ref(*args_b)) <= TOL
+    assert all(torch.equal(x, y) for x, y in zip(first, kept))
+    assert int(kept[2]) == int(args_a[5].sum()) and int(second[2]) == int(args_b[5].sum())
+
+
+def test_gn_kernel_reads_r_through_its_strides(dev):
+    pts, covs, R, mu, covm, mask = gn_args(1000, 13, dev)
+    Rt = R.T.contiguous().T  # the same matrix, column-major
+    assert not Rt.is_contiguous()
+    a = gn.normal_equations_rotated(pts, covs, R.contiguous(), mu, covm, mask)
+    b = gn.normal_equations_rotated(pts, covs, Rt, mu, covm, mask)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_gn_kernel_masked_rows_exactly_zero(dev):
@@ -77,15 +101,15 @@ def test_gn_kernel_masked_rows_exactly_zero(dev):
     bad = gn.normal_equations_rotated(
         pts, covs, R, mu, torch.where(mask[:, None], covm, float("nan")), mask
     )
-    assert torch.equal(good[0], bad[0]) and torch.equal(good[1], bad[1])
+    assert all(torch.equal(g, b) for g, b in zip(good, bad))
     none = gn.normal_equations_rotated(pts, covs, R, mu, covm, torch.zeros_like(mask))
-    assert (none[0] == 0).all() and (none[1] == 0).all()
+    assert (none[0] == 0).all() and (none[1] == 0).all() and none[2] == 0
 
 
 def test_gn_kernel_is_deterministic(dev):
     args = gn_args(16384, 8, dev)
     a, b = gn.normal_equations_rotated(*args), gn.normal_equations_rotated(*args)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def seg_inputs(n, n_keys, dev, seed=3, w=10):
@@ -109,6 +133,51 @@ def test_segscan_kernel_matches_plain(dev, n, n_keys):
     scale = segscan.segsum_sorted_ref(keys, vals.abs())
     assert ((out[head] - ref[head]).abs() <= TOL * scale[head]).all()
     assert torch.equal(segscan.segsum_sorted(keys, vals), out)  # deterministic
+
+
+def straddling_keys(n, tail):
+    """Sorted keys in runs of 300, 700 and 5,000 rows, so that segments
+    straddle many 256-row tiles, ending like a real scan's padded rows: the
+    last `tail` rows share the largest key."""
+    lengths = np.resize(np.array([300, 700, 5000]), n // 300 + 1)
+    keys = np.repeat(np.arange(len(lengths)), lengths)[:n].astype(np.int32)
+    keys[n - tail:] = np.iinfo(np.int32).max
+    return keys
+
+
+@pytest.mark.parametrize("w", [1, 10, 16])
+@pytest.mark.parametrize("n,tail", [(131072, 11072), (131072 - 37, 3000), (6001, 0)])
+def test_segscan_kernel_runs_straddling_tiles(dev, n, tail, w):
+    keys = torch.as_tensor(straddling_keys(n, tail), device=dev)
+    vals = seg_inputs(n, 1, dev, seed=w, w=w)[1]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = keys[1:] != keys[:-1]
+    out = segscan.segsum_sorted(keys, vals)
+    ref = segscan.segsum_sorted_ref(keys, vals)
+    scale = segscan.segsum_sorted_ref(keys, vals.abs())
+    assert ((out[head] - ref[head]).abs() <= TOL * scale[head]).all()
+    assert torch.equal(segscan.segsum_sorted(keys, vals), out)  # deterministic
+
+
+def test_segscan_kernel_every_row_is_the_suffix_sum(dev):
+    """Beyond the head-row contract: every row holds the sum from itself to
+    the end of its segment, across tile borders."""
+    n = 4000
+    keys = torch.as_tensor(straddling_keys(n, 0), device=dev)
+    vals = torch.ones((n, 10), device=dev)
+    out = segscan.segsum_sorted(keys, vals)
+    k = keys.cpu().numpy()
+    ends = np.searchsorted(k, k, side="right")
+    expect = (ends - np.arange(n)).astype(np.float32)
+    assert torch.equal(out.cpu(), torch.as_tensor(expect)[:, None].expand(n, 10))
+
+
+def test_segscan_kernel_takes_an_unaligned_view(dev):
+    """Rows that do not start on a 16-byte border take the scalar path."""
+    keys, vals = seg_inputs(3001, 40, dev)
+    out = segscan.segsum_sorted(keys[1:], vals[1:])
+    assert vals[1:].data_ptr() % 16 != 0
+    assert torch.equal(out, segscan.segsum_sorted(keys[1:].clone(), vals[1:].clone()))
 
 
 def test_segscan_kernel_all_unique_is_identity(dev):

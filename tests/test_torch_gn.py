@@ -6,8 +6,9 @@ form in torch ops).  It is held against the JAX Pallas kernel in interpret
 mode (`normal_equations_pallas_rotated`) and against the JAX einsum path
 (`registration.normal_equations`), at the tolerance `test_gn_pallas.py`
 uses: rtol 1e-5 plus atol 1e-4 of the largest entry (f32 sums of ~1000
-terms grouped differently).  The CUDA kernel itself is held against the
-plain version on the card in `test_torch_cuda.py`.
+terms grouped differently).  The count, the port's third value, is an
+integer and is compared exactly.  The CUDA kernel itself is held against
+the plain version on the card in `test_torch_cuda.py`.
 """
 
 import numpy as np
@@ -46,12 +47,31 @@ def _pack(c):
     return c[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]].copy()
 
 
-def _port(pts, covs, mu, covm, mask, R):
+def _port3(pts, covs, mu, covm, mask, R):
+    """The port's three values: JTJ, JTr, count."""
     t = torch.as_tensor
-    JTJ, JTr = t_gn.normal_equations_rotated(
+    out = t_gn.normal_equations_rotated(
         t(pts), t(_pack(covs)), t(R), t(mu), t(_pack(covm)), t(mask)
     )
-    return JTJ.numpy(), JTr.numpy()
+    return tuple(x.numpy() for x in out)
+
+
+def _port(pts, covs, mu, covm, mask, R):
+    return _port3(pts, covs, mu, covm, mask, R)[:2]
+
+
+def _jax_sums(pts, covs, mu, covm, mask, R):
+    """The Pallas kernel in interpret mode down to its 28 sums, as
+    `gn_pallas._run` calls it: (JTJ, JTr, num_corr)."""
+    n = len(pts)
+    blk = min(gn_pallas._BLOCK, ((n + 127) // 128) * 128)
+    x = gn_pallas.pack_operand(
+        jnp.asarray(pts), jnp.asarray(_pack(covs)), jnp.asarray(mu),
+        jnp.asarray(_pack(covm)), jnp.asarray(mask),
+    )
+    x = jnp.pad(x, ((0, 0), (0, (-n) % blk)))
+    sums = gn_pallas._gn_call(jnp.asarray(R).reshape(9), x, interpret=True, block=blk)
+    return tuple(np.asarray(v) for v in gn_pallas._unpack_sums(sums))
 
 
 def _close(a, b):
@@ -69,6 +89,19 @@ def test_plain_matches_jax_pallas_interpret(n):
         jnp.asarray(_pack(covm)), jnp.asarray(mask), interpret=True,
     )
     _close(_port(pts, covs, mu, covm, mask, R), [np.asarray(x) for x in ref])
+
+
+@pytest.mark.parametrize("n", [128, 1000, 4096])
+def test_count_equals_mask_sum_and_jax_num_corr(n):
+    """The third value is the number of rows with the mask set: exactly
+    `mask.sum()`, and exactly the Pallas kernel's 28th sum."""
+    pts, covs, mu, covm, mask, R = _inputs(n, seed=n + 2)
+    count = _port3(pts, covs, mu, covm, mask, R)[2]
+    assert count.shape == () and count.dtype == np.float32
+    assert int(count) == int(mask.sum())
+    assert int(count) == int(_jax_sums(pts, covs, mu, covm, mask, R)[2])
+    none = _port3(pts, covs, mu, covm, np.zeros_like(mask), R)[2]
+    assert int(none) == 0
 
 
 @pytest.mark.parametrize("n", [128, 1000])
@@ -91,16 +124,26 @@ def test_port_einsum_matches_jax_einsum():
 
 def test_masked_rows_contribute_exactly_zero():
     """Garbage behind mask=False — singular, even non-finite — must not
-    leak: the plain version zeroes masked rows before the arithmetic."""
+    leak: the plain version zeroes masked rows before the arithmetic.
+
+    This is where the port deliberately departs from the JAX package: its
+    Pallas kernel folds the mask into 1/det, so the same non-finite inputs
+    behind the mask turn its sums non-finite (finite inputs agree, as the
+    tests above show).  Both halves are pinned here."""
     pts, covs, mu, covm, mask, R = _inputs(512, seed=3)
-    good = _port(pts, covs, mu, covm, mask, R)
+    good = _port3(pts, covs, mu, covm, mask, R)
     covs_bad, covm_bad, pts_bad = covs.copy(), covm.copy(), pts.copy()
     covs_bad[~mask] = 0.0
     covm_bad[~mask] = np.nan
     pts_bad[~mask] = np.inf
-    bad = _port(pts_bad, covs_bad, mu, covm_bad, mask, R)
+    bad = _port3(pts_bad, covs_bad, mu, covm_bad, mask, R)
     for g, b in zip(good, bad):
+        assert np.isfinite(b).all()
         np.testing.assert_array_equal(b, g)
+    j_good = _jax_sums(pts, covs, mu, covm, mask, R)
+    _close(good[:2], j_good[:2])
+    j_bad = _jax_sums(pts_bad, covs_bad, mu, covm_bad, mask, R)
+    assert not np.isfinite(j_bad[0]).all() and not np.isfinite(j_bad[1]).all()
     none = _port(pts, covs, mu, covm, np.zeros_like(mask), R)
     assert all((x == 0).all() for x in none)
 

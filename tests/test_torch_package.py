@@ -143,6 +143,21 @@ def test_library_name_follows_the_source(tmp_path, monkeypatch):
     assert a != b and a.parent == b.parent == _cuda.BUILD_DIR
 
 
+def test_kernel_stamp_anchors_match_the_sources():
+    """The phase-timing tool places its clock stamps by text anchors in the
+    kernel sources: every anchor still matches exactly once."""
+    from eskf_lio_torch.utils import kernel_stamps as ks
+
+    for name, stamps, plumbing in (("gn_normal_eq", ks.GN_STAMPS, ks.GN_PLUMBING),
+                                   ("segscan", ks.SEG_STAMPS, ks.SEG_PLUMBING)):
+        src = (_cuda.CSRC_DIR / f"{name}.cu").read_text()
+        stamped = ks.apply_stamps(src, stamps, plumbing)
+        assert stamped.count("  STAMP(") == len(stamps) <= ks.SLOTS
+        assert "long long* stamps" in stamped
+    with pytest.raises(ValueError, match="anchor"):
+        ks.apply_stamps("namespace {\n", [("x", "not there", True)], [])
+
+
 def test_chip_smoke_refuses_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA")

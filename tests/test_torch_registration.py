@@ -87,6 +87,7 @@ def test_align_matches_jax(world, xi, seed):
         t = t_reg.align(scan, t_map, guess, TConfig(**{**cfg, "gn_backend": backend}))
         assert t.iterations == int(j.iterations), backend
         assert t.converged == bool(j.converged)
+        assert t.num_correspondences.dtype == torch.int64
         assert int(t.num_correspondences) == int(j.num_correspondences)
         np.testing.assert_allclose(t.pose.t.numpy(), np.asarray(j.pose.t), atol=1e-4)
         np.testing.assert_allclose(t.pose.R.numpy(), np.asarray(j.pose.R), atol=1e-4)
