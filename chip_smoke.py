@@ -26,7 +26,22 @@
    to 0 just before and read just after; checks finite poses, convergence,
    ATE against ground truth, and that the kernels were launched exactly as
    often as the path needs.
-4. Prints the kernels' JSON line, the nvidia-smi line, and last
+4. Live path: at the same size and on the same 40 scans, with
+   `remove_period` cut to 2.0 s and `remove_distance_threshold` to 15 m so
+   that an eviction fires inside the step (the synthetic room is 20 m wide:
+   nothing lies beyond the default 100 m),
+   `stream`: the scan-at-a-time `Odometry.run` and the threaded
+   `StreamingRunner.run(merged_stream(seq))`, launch counters zeroed before
+   and read after each; both must track ground truth, must have fed the step
+   bitwise-equal inputs, and the synchronous driver run twice must give the
+   same bits (trajectory and every word of the map).  Prints scans/s,
+   host-to-device bytes and device syncs per scan, and which ingest path ran.
+   `resume`: 20 scans, `save_checkpoint`, `load_checkpoint` into a fresh
+   driver, 19 more: equal bit for bit to the straight run.
+   `cli`: `eskf_lio_torch.cli.main` in process on a HEAVY YAML, 2 s of the
+   synthetic simulator in --stream mode, with the PCD, trajectory JSON and
+   checkpoint it writes checked.
+5. Prints the kernels' JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}} — only when every phase passed.
 
 `--kernels-only` stops after phase 2 and prints no result line (a short run
@@ -39,10 +54,17 @@ JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import hashlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -436,8 +458,8 @@ def kernel_b_phase(dev, config, scan_points) -> dict:
         print(f"kernel B timing [{label}] N={n} W={w}: "
               f"{device_ms(lambda: segscan.segsum_sorted(k, rnd10)):.5f} ms (device)")
 
-    # kernel B against index_add_ at the shape of `voxel_map.insert`'s
-    # per-voxel sums (which still use index_add_): a measurement only
+    # kernel B at its second call site, `voxel_map.insert`'s per-voxel sums,
+    # against the zeros_like + index_add_ it replaced there
     skey_s, raw_s, head_i, seg_id = insert_rows(dev, config, scan_points)
     out_b = segscan.segsum_sorted(skey_s, raw_s)
     out_i = torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)
@@ -447,10 +469,13 @@ def kernel_b_phase(dev, config, scan_points) -> dict:
     check(rel <= SEG_TOL, "kernel B disagrees with index_add_ at insert's shape")
     b_ms = device_ms(lambda: segscan.segsum_sorted(skey_s, raw_s))
     i_ms = device_ms(lambda: torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s))
-    print(f"insert's shape N={raw_s.shape[0]} W={raw_s.shape[1]} voxels={int(head_i.sum())}: "
-          f"kernel B {b_ms:.5f} ms, zeros_like + index_add_ {i_ms:.5f} ms (device), "
-          f"rel_err={rel:.3e}")
-    res.update(insert_shape_ms=b_ms, insert_shape_index_add_ms=i_ms)
+    n_i, w_i = raw_s.shape
+    b_bound = bound(n_i * 4 + 2 * n_i * w_i * 4, n_i * w_i)["bound_ms"]
+    print(f"insert's shape N={n_i} W={w_i} voxels={int(head_i.sum())}: "
+          f"kernel B {b_ms:.5f} ms (bound {b_bound:.5f} ms, bytes), "
+          f"zeros_like + index_add_ {i_ms:.5f} ms (device), rel_err={rel:.3e}")
+    res.update(insert_shape_ms=b_ms, insert_shape_index_add_ms=i_ms,
+               insert_shape_bound_ms=b_bound)
     return res
 
 
@@ -571,8 +596,9 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
     check(ate_cm <= MAX_ATE_CM, f"ATE {ate_cm:.2f} cm > {MAX_ATE_CM} cm")
     check(launches["gn_normal_eq"] == int(np.sum(iters)),
           f"kernel A launches {launches['gn_normal_eq']} != GN iterations {int(np.sum(iters))}")
-    check(launches["segscan"] == n_upd + 1,
-          f"kernel B launches {launches['segscan']} != update scans + 1 = {n_upd + 1}")
+    # the downsampler and `insert`, on every update scan and on the init scan
+    check(launches["segscan"] == 2 * n_upd + 2,
+          f"kernel B launches {launches['segscan']} != 2 x update scans + 2 = {2 * n_upd + 2}")
 
     # eviction at full size on the final map (the 4 s run ends before the
     # first 10 s eviction period): fold, then drop voxels beyond 5 m
@@ -659,6 +685,316 @@ def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the live path (streaming drivers, checkpoint, CLI)
+# ---------------------------------------------------------------------------
+
+STREAM_REMOVE_PERIOD_S = 2.0
+STREAM_REMOVE_DISTANCE_M = 15.0
+
+
+def stream_config():
+    """HEAVY with the eviction schedule pulled inside a 4 s run."""
+    return dataclasses.replace(
+        heavy_config(), remove_period=STREAM_REMOVE_PERIOD_S,
+        remove_distance_threshold=STREAM_REMOVE_DISTANCE_M,
+    )
+
+
+@contextlib.contextmanager
+def sync_debug(mode: str):
+    import torch
+
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(mode)
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+
+
+def record_step_inputs(odo, log: list) -> None:
+    """Wrap the driver's scan step to log a digest of its stream-derived
+    inputs (IMU chunk, scan, evict flag), not of the carried state.  Chunk
+    rows are masked to `valid & t_rel <= 0`: whether the first IMU sample
+    beyond scan end is already in the chunk depends on arrival timing, and
+    nothing reads it.  The digest's own reads are kept out of the count of
+    device syncs."""
+    import numpy as np
+
+    inner = odo.scan_step
+
+    def host(x):
+        return np.ascontiguousarray(x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x))
+
+    def wrapped(state, voxmap, prev_R, prev_t, chunk, scan, do_evict):
+        with sync_debug("default"):
+            h = hashlib.sha1()
+            m = host(chunk.valid) & (host(chunk.t_rel) <= 0.0)
+            for arr in (chunk.dt, chunk.t_rel, chunk.gyro, chunk.accel):
+                a = host(arr)
+                mm = m.reshape(m.shape + (1,) * (a.ndim - m.ndim))
+                h.update(np.ascontiguousarray(np.where(mm, a, 0)).tobytes())
+            h.update(m.tobytes())
+            for arr in (*scan, do_evict):
+                h.update(host(arr).tobytes())
+            log.append(h.hexdigest())
+        return inner(state, voxmap, prev_R, prev_t, chunk, scan, do_evict)
+
+    odo.scan_step = wrapped
+
+
+def maps_bit_equal(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=None):
+    """One driver run with the launch counters zeroed before and read after.
+    `run(on_scan)` starts it; returns its readings and checks its health."""
+    import numpy as np
+    import torch
+
+    from eskf_lio_torch.utils.metrics import ate_rmse
+
+    if digests is not None:
+        record_step_inputs(odo, digests)
+    stamps, kept = [], {}
+
+    def on_scan(o):
+        stamps.append(time.perf_counter())
+        if keep_map_at is not None and len(o.trajectory_t) == keep_map_at:
+            kept["voxmap"] = o.voxmap  # the step builds new tensors, never in place
+
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, \
+            sync_debug("warn" if count_syncs else "default"):
+        warnings.simplefilter("always")
+        summary = run(on_scan)
+        torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+
+    diags = odo.diags
+    n_upd = len(diags)
+    iters = int(sum(int(d["icp_iterations"]) for d in diags))
+    conv = float(np.mean([bool(d["icp_converged"]) for d in diags]))
+    positions = odo.positions
+    ate_cm = 100.0 * ate_rmse(positions, seq.gt_positions[: len(positions)])
+    half = len(stamps) // 2
+    res = dict(
+        scans=summary["num_scans"], scans_per_s=summary["scans_per_sec"],
+        warm_half_scans_per_s=(len(stamps) - 1 - half) / (stamps[-1] - stamps[half]),
+        avg_step_ms=summary["avg_step_ms"], max_step_ms=summary["max_step_ms"],
+        ate_cm=ate_cm, convergence=conv, gn_iterations=iters, launches=launches,
+        h2d_bytes_per_scan=odo.h2d_bytes / summary["num_scans"],
+        driver_reads_per_update_scan=odo.device_reads / n_upd,
+        map_voxels=summary["map_voxels"],
+        evictions=[(i + 1, int(d["removed_voxels"])) for i, d in enumerate(diags)
+                   if int(d["removed_voxels"]) > 0],
+        dropped_points=int(sum(int(d["dropped_points"]) for d in diags)),
+        dropped_raw_points=int(sum(int(d["dropped_raw_points"]) for d in diags)),
+        max_align_slice_overflow=int(max(int(d["align_slice_overflow"]) for d in diags)),
+    )
+    if count_syncs:
+        # torch's sync debug mode warns at each call that waits for the
+        # device, a blocking upload included; by calling line, per scan
+        n = summary["num_scans"]
+        sites: dict = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                site = f"{Path(w.filename).name}:{w.lineno}"
+                sites[site] = sites.get(site, 0) + 1
+        res["device_syncs_per_scan"] = sum(sites.values()) / n
+        res["sync_sites_per_scan"] = {
+            k: v / n for k, v in sorted(sites.items(), key=lambda kv: -kv[1])
+        }
+    check(bool(np.isfinite(positions).all()) and all(bool(d["pose_finite"]) for d in diags),
+          "non-finite pose in a streaming run")
+    check(not summary["diverged"], "a streaming run diverged")
+    check(conv > MIN_CONVERGENCE, f"streaming convergence {conv:.3f} <= {MIN_CONVERGENCE}")
+    check(ate_cm <= MAX_ATE_CM, f"streaming ATE {ate_cm:.2f} cm > {MAX_ATE_CM} cm")
+    check(launches["gn_normal_eq"] == iters,
+          f"kernel A launches {launches['gn_normal_eq']} != GN iterations {iters}")
+    check(launches["segscan"] == 2 * n_upd + 2,
+          f"kernel B launches {launches['segscan']} != 2 x update scans + 2 = {2 * n_upd + 2}")
+    return res, kept.get("voxmap")
+
+
+def stream_phase(seq, kernels, replay_scans_per_s: float):
+    import numpy as np
+
+    from eskf_lio_torch.pipeline.odometry import Odometry
+    from eskf_lio_torch.pipeline.stream import StreamingRunner, merged_stream
+
+    config = stream_config()
+    n = len(seq.scans)
+
+    # each driver twice, in turns: timed; then with the step's inputs digested
+    # (and, for the synchronous one, the device syncs counted)
+    sync = Odometry(config)  # the default device is the card
+    check(sync.device.type == "cuda", "Odometry did not default to the card")
+    res_a, map_at_39 = drive(lambda cb: sync.run(seq, on_scan=cb), sync, kernels, seq,
+                             keep_map_at=n - 1)
+    runner = StreamingRunner(config)
+    res_b, _ = drive(lambda cb: runner.run(merged_stream(seq), on_scan=cb), runner.odo,
+                     kernels, seq)
+    again, digests_a = Odometry(config), []
+    res_a2, _ = drive(lambda cb: again.run(seq, on_scan=cb), again, kernels, seq,
+                      digests=digests_a, count_syncs=True)
+    runner2, digests_b = StreamingRunner(config), []
+    res_b2, _ = drive(lambda cb: runner2.run(merged_stream(seq), on_scan=cb), runner2.odo,
+                      kernels, seq, digests=digests_b)
+    same_bits = (
+        np.array_equal(np.stack(sync.trajectory_p), np.stack(again.trajectory_p))
+        and np.array_equal(np.stack(sync.trajectory_R), np.stack(again.trajectory_R))
+        and maps_bit_equal(sync.voxmap, again.voxmap)
+    )
+
+    res = dict(
+        config=f"HEAVY with remove_period {STREAM_REMOVE_PERIOD_S} s and "
+               f"remove_distance_threshold {STREAM_REMOVE_DISTANCE_M} m, so that an "
+               "eviction fires inside the step (the replay phase ends before the "
+               "default 10 s period, and the 20 m room has nothing beyond 100 m)",
+        scans=n, ingest=runner.ingest, replay_warm_half_scans_per_s=replay_scans_per_s,
+        synchronous=res_a, threaded=res_b,
+        # the second pair of runs, slowed alike by the digest's reads
+        digested_scans_per_s={"synchronous": res_a2["scans_per_s"],
+                              "threaded": res_b2["scans_per_s"]},
+        device_syncs_per_scan=res_a2["device_syncs_per_scan"],
+        sync_sites_per_scan=res_a2["sync_sites_per_scan"],
+        synchronous_twice_bit_equal=same_bits,
+        step_inputs_bit_equal=digests_a == digests_b,
+    )
+    print("stream " + json.dumps(res))
+    check(res_a["scans"] == res_b["scans"] == n,
+          f"drivers processed {res_a['scans']} and {res_b['scans']} of {n} scans")
+    check(len(digests_a) == n - 1 and digests_a == digests_b,
+          "the threaded and the synchronous driver fed the step different inputs")
+    check(bool(res_a["evictions"]) and bool(res_b["evictions"]),
+          "no eviction removed a voxel inside the step")
+    check(same_bits, "two runs of the synchronous driver differ in their bits")
+    launches = {"stream_synchronous": res_a["launches"], "stream_threaded": res_b["launches"]}
+    return sync, map_at_39, launches
+
+
+def continue_run(odo, seq, start: int, stop: int) -> None:
+    """Feed scans [start, stop) and the IMU after the filter clock to a
+    restored driver, as `Odometry.run` would have."""
+    imu = iter([r for r in seq.imu if r.t > odo.t_last_update])
+    nxt = next(imu, None)
+    for scan in seq.scans[start:stop]:
+        while nxt is not None and nxt.t <= scan.end_time + 0.05:
+            odo.feed_imu(nxt)
+            nxt = next(imu, None)
+        check(odo.process_scan(scan) is not None, "a resumed scan was not covered by IMU")
+
+
+def resume_phase(seq, straight, straight_map) -> None:
+    """20 scans, checkpoint, a fresh driver, 19 more: equal to the straight
+    run of the stream phase (its first 39 poses and its map after scan 39)."""
+    import numpy as np
+
+    from eskf_lio_torch.pipeline.odometry import Odometry
+    from eskf_lio_torch.utils import checkpoint
+
+    config = stream_config()
+    n_first, n_all = 20, len(seq.scans) - 1
+    first = Odometry(config)
+    first.run(seq, max_scans=n_first)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(path, first)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        resumed = Odometry(config)
+        t0 = time.perf_counter()
+        checkpoint.load_checkpoint(path, resumed)
+        load_s = time.perf_counter() - t0
+    check(all(x.device.type == "cuda" for x in (*resumed.voxmap, *resumed.state)),
+          "a restored tensor is not on the card")
+    continue_run(resumed, seq, n_first, n_all)
+    same_traj = (
+        np.array_equal(np.stack(resumed.trajectory_p), np.stack(straight.trajectory_p[:n_all]))
+        and np.array_equal(np.stack(resumed.trajectory_R), np.stack(straight.trajectory_R[:n_all]))
+    )
+    same_map = maps_bit_equal(resumed.voxmap, straight_map)
+    print("resume " + json.dumps(dict(
+        scans_before=n_first, scans_after=n_all - n_first, checkpoint_bytes=size,
+        save_s=save_s, load_s=load_s, trajectory_bit_equal=same_traj, map_bit_equal=same_map,
+    )))
+    check(same_traj, "the resumed trajectory differs from the straight run's")
+    check(same_map, "the resumed map differs from the straight run's")
+
+
+HEAVY_YAML = """\
+sensors:
+  imu:
+    intrinsics:
+      parameters:
+        gravity: [0.0, 0.0, -9.81]
+kalman_filter:
+  update:
+    translation_noise: 1.0e-3
+    rotation_noise: 3.0e-4
+tpu:
+  max_raw_points: 131072
+  max_scan_points: 32768
+  max_imu_per_scan: 64
+  hash_capacity_log2: 19
+"""
+
+
+def cli_phase(kernels) -> dict:
+    """The command line in process: --stream on 2 s of the synthetic
+    simulator at HEAVY capacities, with every artifact it can write."""
+    from eskf_lio_torch import cli
+    from eskf_lio_torch.config import load_config
+    from eskf_lio_torch.io import export
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, pcd, traj, ckpt = (os.path.join(tmp, n) for n in
+                                ("heavy.yaml", "map.pcd", "traj.json", "ckpt"))
+        with open(cfg, "w") as f:
+            f.write(HEAVY_YAML)
+        check(load_config(cfg) == heavy_config(), "the CLI phase's YAML is not HEAVY")
+        for k in kernels:
+            k.launches = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["--config", cfg, "--synthetic", "2.0", "--points-per-scan", "120000",
+                           "--stream", "--cloud-out", pcd, "--traj-out", traj,
+                           "--checkpoint-out", ckpt])
+        wall = time.perf_counter() - t0
+        report = out.getvalue()
+        for line in report.splitlines():
+            print(f"  cli: {line}")
+        check(rc == 0, f"the CLI returned {rc}")
+        for want in ("step average elapsed time = ", "scans/s (streaming, threaded ingest)",
+                     "map voxels = ", f"saved {pcd}", f"saved {traj}"):
+            check(want in report, f"the CLI's report lacks {want!r}")
+        voxels = int(report.split("map voxels = ")[1].split()[0])
+        with open(pcd) as f:
+            points = next(int(l.split()[1]) for l in f if l.startswith("POINTS"))
+        poses = len(export.read_trajectory_json(traj)[0])
+        res = dict(
+            wall_s=wall, map_voxels=voxels, pcd_points=points, poses=poses,
+            checkpoint_files=sorted(os.listdir(ckpt)),
+            launches={k.name: k.launches for k in kernels},
+        )
+        print("cli " + json.dumps(res))
+        check(points == voxels > 1000, f"PCD POINTS {points} != map voxels {voxels}")
+        check(poses == 19, f"{poses} poses for the 19 scans of 2 s")
+        check(res["checkpoint_files"] == ["arrays.npz", "meta.pkl"], "no checkpoint written")
+        check(res["launches"]["segscan"] == 2 * poses and res["launches"]["gn_normal_eq"] > 0,
+              f"the CLI's run did not go through the kernels: {res['launches']}")
+        return res["launches"]
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -707,6 +1043,12 @@ def main() -> int:
         packed = replay.pack_sequence(config, seq, device=dev)
         e2e = e2e_phase(dev, config, seq, packed, kernels)
         profile_phase(dev, config, packed, 1e3 / e2e["scans_per_s"])
+        del packed
+        by_path = {"replay": e2e["launches"]}
+        straight, straight_map, launches = stream_phase(seq, kernels, e2e["scans_per_s"])
+        by_path.update(launches)
+        resume_phase(seq, straight, straight_map)
+        by_path["cli"] = cli_phase(kernels)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -721,7 +1063,11 @@ def main() -> int:
         "kernels": [
             {
                 "name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": e2e["launches"][name], "max_abs_err": r["max_abs_err"],
+                # of the replay; each path was driven with the counts set to 0
+                # just before it and read just after
+                "launches": e2e["launches"][name],
+                "launches_by_path": {path: n[name] for path, n in by_path.items()},
+                "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -730,9 +1076,11 @@ def main() -> int:
             for name, r, src, rep in rows
         ],
         # yardsticks measured in this run: an empty <<<1,32>>> launch, and
-        # kernel B against zeros_like + index_add_ at insert's shape
+        # kernel B at its second call site (insert's [32,768, 10] rows) with
+        # its bound and the zeros_like + index_add_ it replaced there
         "empty_launch_ms": res_a["empty_launch_ms"],
         "insert_shape": {"segscan_ms": res_b["insert_shape_ms"],
+                         "bound_ms": res_b["insert_shape_bound_ms"],
                          "index_add_ms": res_b["insert_shape_index_add_ms"]},
     }
     print(json.dumps(line))

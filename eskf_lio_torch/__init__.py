@@ -11,9 +11,14 @@ Layers (bottom-up), as in the JAX package:
              downsample + covariances, the two CUDA kernels
   map/       the two-tier hash-ordered voxel map
   models/    error-state Kalman filter, VGICP Gauss-Newton registration
-  pipeline/  the per-scan step and the replay driver
-  io/        the synthetic sequence generator
-  utils/     ATE metrics, state conversion from the JAX package's arrays
+  pipeline/  the per-scan step; the replay, scan-at-a-time and threaded
+             streaming drivers
+  io/        synthetic sequences, rosbag2 ingestion, PCD / trajectory export,
+             the native runtime bindings (SPSC queue, scan packing)
+  utils/     ATE metrics, state conversion from the JAX package's arrays,
+             checkpoint / resume, profiling, kernel and driver probes
+  viz/       offline and live map + trajectory rendering (lazy matplotlib)
+  cli.py     `python -m eskf_lio_torch.cli`
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; without a GPU the default raises instead of falling back.

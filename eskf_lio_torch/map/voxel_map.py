@@ -19,9 +19,11 @@ Translation notes: JAX's out-of-range scatter indices are dropped
 (`mode="drop"`); here such rows go to one extra dump row that is sliced
 off.  Every gather index is in range by construction (bucket ids are below
 the bucket count; searchsorted results are clamped).  The fold/append
-`lax.cond` is a host branch on one scalar.  `jax.ops.segment_sum` is
-`index_add_`, whose CUDA atomics reorder the float sums: payloads agree
-with the JAX package to f32 rounding, integer words exactly.
+`lax.cond` is a host branch on one scalar.  `jax.ops.segment_sum` over the
+key-sorted batch is `ops.segscan.segsum_sorted` (kernel B on the card, no
+float atomics), so the same batch gives the same map bit for bit, run after
+run; payloads agree with the JAX package to f32 rounding, integer words
+exactly.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from eskf_lio_torch import device as device_policy
+from eskf_lio_torch.ops import segscan
 from eskf_lio_torch.ops import sortmerge as sm
 from eskf_lio_torch.ops import voxel as vx
 
@@ -399,7 +402,11 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
     skey_s, _, raw_s = sm.sort_perm(skey, raw)
     ok_s = skey_s != INT32_MAX
     head, seg_id = sm.unique_segments(skey_s, ok_s)
-    u_pay = torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)  # [N, 10]
+    # segment totals arrive on head rows only (other rows are unspecified):
+    # compact exactly those to the unique rows, as the keys below
+    u_pay = _scatter_rows(
+        torch.zeros_like(raw_s), seg_id, segscan.segsum_sorted(skey_s, raw_s), head
+    )  # [N, 10]
     u_skey = _scatter_rows(
         torch.full((n,), INT32_MAX, dtype=torch.int32, device=dev),
         seg_id, skey_s, head,

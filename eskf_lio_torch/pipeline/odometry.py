@@ -1,4 +1,4 @@
-"""The per-scan odometry step (port of the step builders of
+"""The per-scan odometry step and its host driver (port of
 `eskf_lio_tpu/pipeline/odometry.py`).
 
 `make_step_core` is the main path of one scan — IMU-prefix prediction,
@@ -6,7 +6,12 @@ deskew / downsample / covariances, VGICP alignment, the ESKF pose update,
 map insert and the periodic eviction — over tensors on one device.  The
 JAX package jits it; here it runs eagerly, with host branches where JAX has
 `lax.cond` (eviction is host-known; the insert fold is one scalar read).
-The streaming `Odometry` driver of the JAX module is not ported yet.
+
+`Odometry` is the scan-at-a-time driver around it: the host does what the
+reference's ROS threads and queues do — buffering, f64 timekeeping, chunk
+building and gating on IMU coverage of the scan end (`Odometry.cpp:65-69`)
+— uploads one packed scan and one IMU chunk per step, and reads the pose
+and the diagnostics back in one transfer.
 
 Each stage runs under a `torch.profiler.record_function` range (predict,
 preprocess, align, pose_update, map_insert, evict), so a profiler trace
@@ -16,6 +21,8 @@ profiler the ranges cost a few microseconds a step.
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Callable
 
 import numpy as np
@@ -24,10 +31,13 @@ from torch.profiler import record_function
 
 from eskf_lio_torch import device as device_policy
 from eskf_lio_torch.config import Config
+from eskf_lio_torch.io import native_runtime
+from eskf_lio_torch.io.dataset import LidarRecord, Sequence
 from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.models import eskf, registration
 from eskf_lio_torch.ops import lie, preprocess
 from eskf_lio_torch.types import FilterState, ImuChunk, Pose, ProcessedScan, Scan
+from eskf_lio_torch.utils.convert import from_numpy
 
 
 def lidar_extrinsics(config: Config, device="cuda", dtype=torch.float32) -> Pose:
@@ -163,3 +173,290 @@ def make_predict_only(config: Config, device="cuda") -> Callable:
         return eskf.predict_chunk_prefix(state, chunk, noise)[0]
 
     return predict_only
+
+
+# ---------------------------------------------------------------------------
+# host orchestrator
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StageTimer:
+    """avg/max wall timing, mirroring the reference's report
+    (`Odometry.cpp:10-14,99-109`)."""
+
+    total: float = 0.0
+    max: float = 0.0
+    count: int = 0
+
+    def add(self, dt: float) -> None:
+        self.total += dt
+        self.max = max(self.max, dt)
+        self.count += 1
+
+    @property
+    def avg(self) -> float:
+        return self.total / max(self.count, 1)
+
+
+# diagnostics read back as flags; the others are counts
+_DIAG_FLAGS = ("icp_converged", "inserted", "pose_finite")
+
+
+class Odometry:
+    """Host-side driver: feeds measurement streams into the device step and
+    records the trajectory.  Single-device.
+
+    `h2d_bytes` and `device_reads` count what the driver itself moves: the
+    bytes of the arrays it uploads and the transfers it reads back (each
+    read waits for the device).  The step's own host branches (one per GN
+    iteration, one in `insert`) are not in `device_reads`."""
+
+    def __init__(self, config: Config, init_state: FilterState | None = None,
+                 device="cuda"):
+        self.config = config
+        self.device = device_policy.resolve(device)
+        self.scan_step = make_scan_step(config, self.device)
+        self.init_step = make_init_step(config, self.device)
+        self.predict_only = make_predict_only(config, self.device)
+
+        self.state = (
+            init_state if init_state is not None else eskf.init_state(config, self.device)
+        )
+        self.voxmap = vm.VoxelMap.create(
+            config.hash_capacity, config.map_delta_capacity, device=self.device
+        )
+        self.prev_R = torch.eye(3, device=self.device)
+        self.prev_t = torch.zeros(3, device=self.device)
+
+        self.initialized = False
+        self.t_last_update: float = 0.0  # f64 host clock of the filter state
+        self.t_last_evict: float = -np.inf
+        self.imu_pending: list = []  # records with t > t_last_update
+
+        self.trajectory_t: list[float] = []
+        self.trajectory_p: list[np.ndarray] = []
+        self.trajectory_R: list[np.ndarray] = []
+        self.diags: list[dict] = []
+        self.timer = StageTimer()
+        self.h2d_bytes = 0
+        self.device_reads = 0
+
+        # failure detection (the reference has none): flag divergence on a
+        # non-finite pose or a sustained loss of map correspondences so
+        # callers can stop/reset instead of silently corrupting the map
+        self.diverged = False
+        self.zero_corr_streak = 0
+        self.zero_corr_limit = 10
+
+    # -- chunk/scan packing ------------------------------------------------
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """One numpy array -> one tensor on the device (f64 -> f32)."""
+        self.h2d_bytes += a.nbytes
+        return from_numpy(a, self.device)
+
+    def _build_chunk(self, records, t_end: float) -> ImuChunk:
+        m = self.config.max_imu_per_scan
+        n = len(records)
+        assert n <= m, f"chunk overflow: {n} > {m}"
+        dt = np.zeros(m, np.float32)
+        t_rel = np.full(m, np.inf, np.float32)
+        gyro = np.zeros((m, 3), np.float32)
+        accel = np.zeros((m, 3), np.float32)
+        valid = np.zeros(m, bool)
+        prev_t = self.t_last_update
+        for i, r in enumerate(records):
+            dt[i] = r.t - prev_t
+            t_rel[i] = r.t - t_end
+            gyro[i] = r.gyro
+            accel[i] = r.accel
+            valid[i] = True
+            prev_t = r.t
+        return ImuChunk(*(self._upload(a) for a in (dt, t_rel, gyro, accel, valid)))
+
+    def _build_scan(self, rec: LidarRecord) -> tuple[Scan, int]:
+        # pad/truncate into the fixed device layout — the C++ fast path
+        # when the native runtime is built, numpy otherwise.  Returns the
+        # scan AND the number of raw points dropped by the capacity cut
+        # (the reference never drops, `Subscriber.hpp:89-97` — a static
+        # budget must, so the loss is surfaced, not silent).
+        xyz, t_rel, valid, n_packed = native_runtime.pack_scan(
+            rec.points, rec.t, rec.end_time, self.config.max_raw_points
+        )
+        dropped_raw = max(len(rec.points) - int(n_packed), 0)
+        scan = Scan(
+            points=self._upload(xyz), t_rel=self._upload(t_rel), valid=self._upload(valid)
+        )
+        return scan, dropped_raw
+
+    def _read_back(self, diag: dict) -> tuple[np.ndarray, np.ndarray, dict]:
+        """The pose and the step's diagnostics on the host.  The values that
+        live on the device come in ONE transfer (f32 values and counts are
+        exact in f64); the GN loop's own host values are taken as they are."""
+        on_device = [k for k, v in diag.items() if isinstance(v, torch.Tensor)]
+        flat = torch.cat(
+            [self.prev_R.reshape(-1).to(torch.float64), self.prev_t.to(torch.float64)]
+            + [diag[k].reshape(1).to(torch.float64) for k in on_device]
+        ).cpu().numpy()
+        self.device_reads += 1
+        pose_R = flat[:9].reshape(3, 3).astype(np.float32)
+        pose_t = flat[9:12].astype(np.float32)
+        values = {**diag, **dict(zip(on_device, flat[12:]))}
+        diag_host = {
+            k: np.asarray(v, bool if k in _DIAG_FLAGS else np.int64)
+            for k, v in values.items()
+        }
+        return pose_R, pose_t, diag_host
+
+    # -- main entry --------------------------------------------------------
+
+    def feed_imu(self, rec) -> None:
+        self.imu_pending.append(rec)
+
+    def process_scan(self, rec: LidarRecord) -> dict | None:
+        """Process one LiDAR sweep; returns the diagnostics dict, or None if
+        the scan is not yet covered by IMU (caller should feed more IMU and
+        retry — the reference's gating loop, `Odometry.cpp:65-69`)."""
+        t_end = rec.end_time
+
+        if not self.initialized:
+            # ref `Odometry.cpp:55-63`
+            self.initialized = True
+            self.t_last_update = t_end
+            # eviction clock starts at the first scan (ref `LocalMap.cpp:60`
+            # keys its period off construction time): the first eviction
+            # fires `remove_period` after start, not on scan 1
+            self.t_last_evict = t_end
+            # drop IMU before the first scan end (ref `ErrorStateKF.cpp:66-69`)
+            self.imu_pending = [r for r in self.imu_pending if r.t >= t_end]
+            scan, _ = self._build_scan(rec)
+            self.voxmap, _ = self.init_step(self.voxmap, scan)
+            self._record(t_end, np.eye(3), np.zeros(3), None)
+            self.prev_R = torch.eye(3, device=self.device)
+            self.prev_t = torch.zeros(3, device=self.device)
+            return {"initialized": True}
+
+        # drop records predating the filter clock (ref drops IMU before
+        # the first scan end, `ErrorStateKF.cpp:66-69`, and negative-dt
+        # samples, `:80-82`).  The init-time drop only sees what has
+        # ARRIVED; under a racing ingest thread, pre-init samples can land
+        # after init and would otherwise bloat this chunk past its static
+        # capacity (a spurious overflow pre-advance).
+        if self.imu_pending and self.imu_pending[0].t <= self.t_last_update:
+            self.imu_pending = [
+                r for r in self.imu_pending if r.t > self.t_last_update
+            ]
+
+        # gating: need at least one IMU sample at/after scan end
+        if not self.imu_pending or self.imu_pending[-1].t < t_end:
+            return None
+
+        t0 = time.perf_counter()
+
+        # split pending: chunk = all samples up to and incl. first > t_end
+        idx_over = next(
+            i for i, r in enumerate(self.imu_pending) if r.t > t_end
+        ) if any(r.t > t_end for r in self.imu_pending) else len(self.imu_pending) - 1
+        chunk_records = self.imu_pending[: idx_over + 1]
+        m = self.config.max_imu_per_scan
+
+        # overflow: pre-advance through all but the last window
+        while len(chunk_records) > m:
+            head, chunk_records = chunk_records[: m], chunk_records[m:]
+            c = self._build_chunk(head, t_end)
+            self.state = self.predict_only(self.state, c)
+            self.t_last_update = head[-1].t
+
+        chunk = self._build_chunk(chunk_records, t_end)
+        scan, dropped_raw = self._build_scan(rec)
+
+        do_evict = bool(
+            self.config.remove_distant_points
+            and t_end - self.t_last_evict >= self.config.remove_period
+        )
+
+        self.state, self.voxmap, self.prev_R, self.prev_t, diag = self.scan_step(
+            self.state,
+            self.voxmap,
+            self.prev_R,
+            self.prev_t,
+            chunk,
+            scan,
+            do_evict,
+        )
+
+        # next chunk re-propagates overhang samples from the corrected state
+        # (replaces the reference's rollback+replay, `ErrorStateKF.cpp:147-155`)
+        self.t_last_update = t_end
+        self.imu_pending = [r for r in self.imu_pending if r.t > t_end]
+        if do_evict:
+            self.t_last_evict = t_end
+
+        # the read waits for the step's device work, so the timer below
+        # covers it whole
+        pose_R, pose_t, diag_host = self._read_back(diag)
+        self.timer.add(time.perf_counter() - t0)
+        # raw points that never reached the device (non-finite or beyond
+        # `max_raw_points`) — a silent-data-loss channel made visible
+        diag_host["dropped_raw_points"] = np.asarray(dropped_raw)
+        if not bool(diag_host.get("pose_finite", True)):
+            self.diverged = True
+        if int(diag_host.get("num_correspondences", 1)) == 0:
+            self.zero_corr_streak += 1
+            if self.zero_corr_streak >= self.zero_corr_limit:
+                self.diverged = True
+        else:
+            self.zero_corr_streak = 0
+        self._record(t_end, pose_R, pose_t, diag_host)
+        return diag_host
+
+    def run(
+        self,
+        seq: Sequence,
+        max_scans: int | None = None,
+        on_scan=None,
+    ) -> dict:
+        """Run a full sequence (merged time-ordered replay of both streams).
+        `on_scan(self)` fires after each processed scan (live viz hook,
+        the role of the reference's per-loop `visualizeLocalMap`,
+        `LocalMap.cpp:120-130`).  Returns summary stats."""
+        imu_iter = iter(seq.imu)
+        next_imu = next(imu_iter, None)
+        n_done = 0
+        for scan in seq.scans:
+            if max_scans is not None and n_done >= max_scans:
+                break
+            # feed IMU until the scan is covered
+            while next_imu is not None and next_imu.t <= scan.end_time + 0.05:
+                self.feed_imu(next_imu)
+                next_imu = next(imu_iter, None)
+            out = self.process_scan(scan)
+            if out is None:
+                # stream exhausted without coverage: stop
+                break
+            n_done += 1
+            if on_scan is not None:
+                on_scan(self)
+        return self.summary()
+
+    def _record(self, t, R, p, diag) -> None:
+        self.trajectory_t.append(float(t))
+        self.trajectory_R.append(np.asarray(R))
+        self.trajectory_p.append(np.asarray(p))
+        if diag is not None:
+            self.diags.append(diag)
+
+    def summary(self) -> dict:
+        return {
+            "diverged": self.diverged,
+            "num_scans": len(self.trajectory_t),
+            "avg_step_ms": self.timer.avg * 1e3,
+            "max_step_ms": self.timer.max * 1e3,
+            "scans_per_sec": 1.0 / self.timer.avg if self.timer.count else 0.0,
+            "map_voxels": int(self.voxmap.num_voxels()),  # one device reduction
+        }
+
+    @property
+    def positions(self) -> np.ndarray:
+        return np.stack(self.trajectory_p) if self.trajectory_p else np.zeros((0, 3))

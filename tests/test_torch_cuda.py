@@ -1,5 +1,7 @@
 """The port on the card: both CUDA kernels against their plain versions,
-and the replay through the kernels against the replay on the CPU.
+the replay through the kernels against the replay on the CPU, the voxel
+map's `insert` through kernel B (the same bits twice; the CPU's words), and
+the streaming driver's launch counts.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -20,10 +22,12 @@ import torch
 
 from eskf_lio_torch.config import Config, ImuConfig
 from eskf_lio_torch.io import dataset
+from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.ops import gn_normal_eq as gn
 from eskf_lio_torch.ops import lie
 from eskf_lio_torch.ops import segscan
 from eskf_lio_torch.pipeline import replay
+from eskf_lio_torch.pipeline.odometry import Odometry
 
 torch.set_num_threads(2)
 
@@ -199,6 +203,82 @@ def test_replay_through_kernels_matches_cpu(dev):
     a0, b0 = gn.KERNEL.launches, segscan.KERNEL.launches
     pos_gpu, _, diags, _ = replay.run_replay(cfg, seq, device=dev)
     assert gn.KERNEL.launches - a0 == int(diags["icp_iterations"].sum())
-    assert segscan.KERNEL.launches - b0 == len(pos_gpu)  # update scans + init
+    # the downsampler and `insert`, on every update scan and on the init scan
+    assert segscan.KERNEL.launches - b0 == 2 * len(pos_gpu)
     pos_cpu, _, _, _ = replay.run_replay(cfg, seq, device="cpu")
     np.testing.assert_allclose(pos_gpu, pos_cpu, atol=1e-2)
+
+
+def insert_batches(seed=0):
+    """Three clouds as `insert` takes them: points, packed covariances and a
+    validity mask with an invalid tail; the third overflows a 2,048-row delta."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for n, center in ((1500, (0, 0, 0)), (1500, (1, 0, 0)), (3000, (6, 2, 0))):
+        pts = (rng.uniform(-5, 5, size=(n, 3)) + center).astype(np.float32)
+        covs = np.tile(np.eye(3, dtype=np.float32) * 0.01, (n, 1, 1))
+        covs += rng.uniform(0, 0.001, size=(n, 1, 1)).astype(np.float32)
+        valid = np.ones(n, bool)
+        valid[-50:] = False
+        out.append((pts, covs[:, [0, 0, 0, 1, 1, 2], [0, 1, 2, 1, 2, 2]], valid))
+    return out
+
+
+def insert_all(device):
+    m = vm.VoxelMap.create(1 << 12, device=device)
+    for pts, covs, valid in insert_batches():
+        m, _ = vm.insert(
+            m, torch.as_tensor(pts, device=device), torch.as_tensor(covs, device=device),
+            torch.as_tensor(valid, device=device), voxel_size=0.3, max_points_per_voxel=1000,
+        )
+    return m
+
+
+def test_insert_on_the_card_is_deterministic(dev):
+    """Per-voxel sums come from kernel B, not from float atomics: the same
+    batches give the same map bit for bit."""
+    b0 = segscan.KERNEL.launches
+    first, again = insert_all(dev), insert_all(dev)
+    assert segscan.KERNEL.launches - b0 == 6  # one launch per insert
+    for name, x, y in zip(first._fields, first, again):
+        assert torch.equal(x, y), name
+
+
+def test_insert_on_the_card_matches_the_cpu(dev):
+    """Integer words equal; payloads to 1e-5 relative (the kernel and the
+    plain version group their f32 sums differently)."""
+    gpu, cpu = insert_all(dev), insert_all("cpu")
+    for name in ("origin", "skey", "d_skey"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
+    for name in ("payload", "d_payload"):
+        np.testing.assert_allclose(
+            getattr(gpu, name).cpu().numpy(), getattr(cpu, name).numpy(), rtol=1e-5, atol=1e-6
+        )
+    for name in ("view", "d_view"):
+        a = getattr(gpu, name).cpu().numpy().reshape(-1, vm.VIEW_SLOT)
+        b = getattr(cpu, name).numpy().reshape(-1, vm.VIEW_SLOT)
+        words = np.r_[0:2, vm._SLOT_PAY:vm.VIEW_SLOT]
+        np.testing.assert_array_equal(a[:, words], b[:, words])
+        np.testing.assert_allclose(
+            a[:, 2:vm._SLOT_PAY].view(np.float32), b[:, 2:vm._SLOT_PAY].view(np.float32),
+            rtol=1e-5, atol=1e-6,
+        )
+
+
+def test_two_scan_odometry_launch_counts(dev):
+    """The streaming driver on the card: init scan + one update scan launch
+    kernel B four times (downsampler and insert, twice) and kernel A once per
+    GN iteration."""
+    cfg = Config(
+        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), max_raw_points=8192,
+        max_scan_points=4096, max_imu_per_scan=48, hash_capacity_log2=16,
+    )
+    seq = dataset.make_synthetic_sequence(duration=0.5, points_per_scan=8000, seed=7)
+    odo = Odometry(cfg)  # the default device is the card
+    assert odo.device.type == "cuda"
+    a0, b0 = gn.KERNEL.launches, segscan.KERNEL.launches
+    summary = odo.run(seq, max_scans=2)
+    assert summary["num_scans"] == 2 and not summary["diverged"]
+    assert segscan.KERNEL.launches - b0 == 4
+    assert gn.KERNEL.launches - a0 == int(odo.diags[0]["icp_iterations"]) > 0
+    assert odo.device_reads == 1 and np.isfinite(odo.positions).all()

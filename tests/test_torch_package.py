@@ -5,7 +5,10 @@
 * The port's copy of the config has the JAX `Config`'s fields and
   defaults, and loads the shipped YAML the same way.
 * Without CUDA an entry point called without `device="cpu"` raises; it
-  never falls back to the CPU.
+  never falls back to the CPU (the CLI's `--device` is held in
+  `test_torch_cli.py`).
+* The live path's host modules (CLI, stream, checkpoint, export, rosbag2,
+  native runtime, profiling) import without matplotlib.
 * The kernel modules import without nvcc or triton, and a kernel that
   cannot be built raises instead of falling back.
 """
@@ -75,7 +78,7 @@ def _entry_points():
     from eskf_lio_torch.io import dataset
     from eskf_lio_torch.map import voxel_map
     from eskf_lio_torch.models import eskf
-    from eskf_lio_torch.pipeline import odometry, replay
+    from eskf_lio_torch.pipeline import odometry, replay, stream
 
     cfg = t_config.Config(max_raw_points=256, max_scan_points=128, hash_capacity_log2=10)
     seq = dataset.make_synthetic_sequence(duration=0.5, points_per_scan=200)
@@ -85,11 +88,15 @@ def _entry_points():
         "make_init_step": lambda **kw: odometry.make_init_step(cfg, **kw),
         "VoxelMap.create": lambda **kw: voxel_map.VoxelMap.create(1024, **kw),
         "init_state": lambda **kw: eskf.init_state(cfg, **kw),
+        "Odometry": lambda **kw: odometry.Odometry(cfg, **kw),
+        "StreamingRunner": lambda **kw: stream.StreamingRunner(cfg, **kw),
     }
 
 
 @pytest.mark.parametrize(
-    "name", ["run_replay", "make_replay_step", "make_init_step", "VoxelMap.create", "init_state"]
+    "name",
+    ["run_replay", "make_replay_step", "make_init_step", "VoxelMap.create", "init_state",
+     "Odometry", "StreamingRunner"],
 )
 def test_entry_points_default_to_cuda_and_refuse_without_it(name):
     if torch.cuda.is_available():
@@ -117,6 +124,22 @@ def test_kernel_modules_import_without_toolchain(tmp_path):
     )
     env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path / "none"),
                PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_live_path_imports_no_matplotlib():
+    """`viz/` is imported lazily: a run without --viz needs no matplotlib."""
+    code = (
+        "import sys\n"
+        "import eskf_lio_torch.cli, eskf_lio_torch.pipeline.stream\n"
+        "import eskf_lio_torch.utils.checkpoint, eskf_lio_torch.utils.profiling\n"
+        "import eskf_lio_torch.io.export, eskf_lio_torch.io.rosbag2\n"
+        "import eskf_lio_torch.viz.live, eskf_lio_torch.viz.visualize\n"
+        "assert 'matplotlib' not in sys.modules and 'jax' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr

@@ -7,7 +7,10 @@ The layout is the JAX package's, so the integer words — skey, d_skey and
 the key / row / pad words of every view slot — must be equal.  Payloads
 (and the payload words of the view slots, read as f32) compare at rtol
 1e-5 / atol 1e-6: f32 running means of O(1-10) values summed by
-`index_add_` here and `segment_sum` there.
+`segsum_sorted` here (its plain version on the CPU) and `segment_sum` there.
+
+`insert` may read kernel B's result on segment head rows only: with every
+other row poisoned the map comes out bit for bit the same.
 """
 
 import numpy as np
@@ -120,6 +123,43 @@ def test_evict_matches(maps_after_inserts):
     j_e, j_rm = j_vm.evict_beyond(j_map, jnp.asarray(center), **kw)
     assert int(t_rm) == int(j_rm) > 0
     assert_maps_equal(t_e, j_e)
+
+
+def test_insert_reads_head_rows_of_the_segment_sums_only(monkeypatch):
+    """Kernel B leaves non-head rows unspecified and the padded tail's run
+    carries no voxel: poison all of those and compare every word."""
+    from eskf_lio_torch.ops import segscan
+
+    calls = []
+
+    def head_rows_only(skey_sorted, vals):
+        assert skey_sorted.dtype == torch.int32 and vals.shape == (skey_sorted.shape[0], 10)
+        assert bool((skey_sorted[1:] >= skey_sorted[:-1]).all())
+        out = segscan.segsum_sorted_ref(skey_sorted, vals)
+        head = torch.ones_like(skey_sorted, dtype=torch.bool)
+        head[1:] = skey_sorted[1:] != skey_sorted[:-1]
+        calls.append(int(head.sum()))
+        poisoned = ~head | (skey_sorted == t_vm.INT32_MAX)
+        return torch.where(poisoned[:, None], float("nan"), out)
+
+    maps = {}
+    for name in ("plain", "poisoned"):
+        with monkeypatch.context() as mp:
+            if name == "poisoned":
+                mp.setattr(segscan, "segsum_sorted", head_rows_only)
+            m = t_vm.VoxelMap.create(CAP, device="cpu")
+            r = np.random.default_rng(5)
+            for n, center in ((1500, (0, 0, 0)), (1500, (1, 0, 0)), (3000, (6, 2, 0))):
+                pts, covs = rand_cloud(r, n, center)
+                valid = np.ones(n, bool)
+                valid[-50:] = False
+                m, _ = t_vm.insert(m, torch.as_tensor(pts), torch.as_tensor(covs),
+                                   torch.as_tensor(valid), voxel_size=VS, max_points_per_voxel=1000)
+            maps[name] = m
+    assert len(calls) == 3 and min(calls) > 100
+    for a, b in zip(maps["plain"], maps["poisoned"]):
+        assert torch.isfinite(b).all() if b.is_floating_point() else True
+        np.testing.assert_array_equal(a.numpy().view(np.int32), b.numpy().view(np.int32))
 
 
 def test_empty_view_and_cov_packing():
