@@ -34,14 +34,44 @@
    `StreamingRunner.run(merged_stream(seq))`, launch counters zeroed before
    and read after each; both must track ground truth, must have fed the step
    bitwise-equal inputs, and the synchronous driver run twice must give the
-   same bits (trajectory and every word of the map).  Prints scans/s,
+   same bits (trajectory and every word of the map; the second, digested pair
+   of runs stops after 24 scans, past the eviction).  Prints scans/s,
    host-to-device bytes and device syncs per scan, and which ingest path ran.
    `resume`: 20 scans, `save_checkpoint`, `load_checkpoint` into a fresh
    driver, 19 more: equal bit for bit to the straight run.
    `cli`: `eskf_lio_torch.cli.main` in process on a HEAVY YAML, 2 s of the
    synthetic simulator in --stream mode, with the PCD, trajectory JSON and
    checkpoint it writes checked.
-5. Prints the kernels' JSON line, the nvidia-smi line, and last
+5. Sharded map and multi-process runtime (`eskf_lio_torch/parallel/`), at the
+   live path's size and on its sequence:
+   `sharded`: `ShardedOdometry(n_devices=4)` in this process, all four shards
+   (2^17 slots each) on the card, twice, beside the single-device run of
+   phase 4: ATE, positions within 2 cm of the single-device run's, no slice
+   overflow, every live key in its owner's block, distinct voxels and point
+   mass within 2 % of the single-device map, kernel A launched 4 x Σ GN
+   iterations and kernel B (1 + 4) x scans, device syncs per scan by calling
+   line, two runs equal bit for bit, and the step's last scan under
+   torch.profiler (`sharded_profile`: launches, busy time, stages).  (Phase 2 holds both kernels against
+   their plain versions and times them at a shard's slice shapes, A at
+   N = 8,192 and B at N = 16,384, W = 10: `slice_shapes`.)
+   `dist`: two processes of `python -m eskf_lio_torch.cli --devices 4
+   --coordinator 127.0.0.1:PORT --num-processes 2 --process-id I` (two shards
+   each, both on the one card, hence `gloo`) on a HEAVY YAML and the first 20
+   scans of the sequence, written to an npz file: both exit 0 under a
+   timeout, process 0's trajectory is within 1e-3 m of a one-process
+   `ShardedOdometry` run on the same file (and within 2 cm of the `sharded`
+   run's: a file's scans end at their last point, not at the sweep's nominal
+   end, which moves the pose's time stamp), the PCD has one point
+   per distinct voxel of the checkpointed map, process 1 wrote nothing; the
+   same run cut at scan 10, checkpointed and resumed by two fresh processes
+   gives the straight run's trajectory; prints the all-reduce's time per call.
+   `staged`: the sharded driver under a `gloo` group of one process, its
+   all-reduces staged through the host as in `dist`, with the device syncs
+   counted: what the group adds to a scan.
+   `nccl`: one process group of one process on the card and one all-reduce
+   of the 43-float buffer through the sharded step's `reduce_fn` (two cards
+   are not available to this script).
+6. Prints the kernels' JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}} — only when every phase passed.
 
 `--kernels-only` stops after phase 2 and prints no result line (a short run
@@ -60,6 +90,8 @@ import hashlib
 import io
 import json
 import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -137,11 +169,13 @@ def event_ms(fn, iters: int = 50, warmup: int = 5, batches: int = 5) -> float:
 def device_profile(fn, iters: int = 50, warmup: int = 5) -> tuple[float, dict]:
     """Per-call device time of `fn` (torch.profiler): the sum of the device
     kernels' own durations, without the host's gaps between launches, and the
-    same by kernel name as {name: {"per_call": launches, "ms": time}}.  A
-    trace that comes back without device records, or with fewer of a kernel
-    than a whole number per call (an empty one was seen once in a dozen
-    runs, after an earlier trace in the same process, and both kinds several
-    times on a busy host), is taken again, up to eight traces in all."""
+    same by kernel name as {name: {"per_call": launches, "ms": time}}.  The
+    tracer sometimes comes back short of a record or two (49 of 50 launches,
+    on a busy host and, in some calls, every time after an earlier trace in
+    the process): a kernel's time per call is its mean duration over the
+    records that came, times its launches per call, which must be within
+    0.05 of a whole number.  A trace without device records, or short of
+    more than that, is taken again, up to eight traces in all."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,20 +188,22 @@ def device_profile(fn, iters: int = 50, warmup: int = 5) -> tuple[float, dict]:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, seen = {}, []
         for e in prof.key_averages():
             if str(getattr(e, "device_type", "")).endswith("CUDA"):
                 us = float(
                     getattr(e, "self_device_time_total", None)
                     or getattr(e, "self_cuda_time_total", 0.0)
                 )
-                by_name[e.key] = {"per_call": e.count / iters, "ms": us / 1e3 / iters}
+                seen.append(e.count / iters)
+                per_call = round(e.count / iters)
+                by_name[e.key] = {"per_call": per_call, "ms": us / 1e3 / e.count * per_call}
         total = sum(v["ms"] for v in by_name.values())
-        whole = all(float(v["per_call"]).is_integer() for v in by_name.values())
+        whole = all(abs(x - round(x)) <= 0.05 and round(x) >= 1 for x in seen)
         if total > 0.0 and whole:
             return total, by_name
         print(f"  torch.profiler's trace is incomplete ({len(by_name)} device kernels, "
-              f"{total:.5f} ms per call); tracing again")
+              f"{sorted(seen)} per call); tracing again")
     raise SmokeFailure("torch.profiler gave no complete device trace in eight tries")
 
 
@@ -367,11 +403,13 @@ def run_keys(run_lengths, n: int, dev):
     return torch.as_tensor(keys, device=dev)
 
 
-def insert_rows(dev, config, scan_points):
+def insert_rows(dev, config, scan_points, n_shards: int = 1):
     """Kernel B's inputs at the shape of `voxel_map.insert`'s per-voxel sums:
     a real scan downsampled to `max_scan_points` rows, moved to a pose off
     the voxel grid as an update scan is, keyed by its map voxels and sorted
-    as `insert` sorts it.  Returns (skey_s, raw_s, head, seg_id)."""
+    as `insert` sorts it; with `n_shards` > 1, the rows that shard 0 of a
+    sharded map owns, compacted to its insert slice first, as the sharded
+    step does.  Returns (skey_s, raw_s, head, seg_id)."""
     import torch
 
     from eskf_lio_torch.map import voxel_map as vm
@@ -389,11 +427,20 @@ def insert_rows(dev, config, scan_points):
     R = lie.so3_exp(torch.tensor([0.02, -0.01, 0.1], device=dev))
     world = processed.points @ R.T + torch.tensor([0.4, -0.2, 0.05], device=dev)
     covs = vm.pack_cov(R @ processed.covs @ R.T)
+    valid = processed.valid
+    if n_shards > 1:
+        from eskf_lio_torch.parallel import sharded_map
+
+        owner = vx.owner_hash(vx.voxel_key(world, config.map_voxel_size), n_shards)
+        (world, covs), valid, _ = sharded_map._compact_slice(
+            valid & (owner == 0), (world, covs),
+            sharded_map.slice_capacity(config.max_scan_points, n_shards, config.shard_slack),
+        )
     keys = vx.voxel_key(world, config.map_voxel_size)
     packed, in_range = sm.pack_keys(keys, origin)
-    ok = processed.valid & in_range
+    ok = valid & in_range
     skey = sm.skey_of(torch.where(ok, packed, sm.INT32_MAX))
-    okf = ok.to(points.dtype)[:, None]
+    okf = ok.to(world.dtype)[:, None]
     raw = torch.cat([okf, world * okf, covs * okf], dim=1)
     skey_s, _, raw_s = sm.sort_perm(skey, raw)
     head, seg_id = sm.unique_segments(skey_s, skey_s != sm.INT32_MAX)
@@ -467,15 +514,17 @@ def kernel_b_phase(dev, config, scan_points) -> dict:
     rows = seg_id[head_i]
     rel = ((out_b[head_i] - out_i[rows]).abs() / scale[rows].clamp(min=1e-30)).max().item()
     check(rel <= SEG_TOL, "kernel B disagrees with index_add_ at insert's shape")
+    b_call_ms = event_ms(lambda: segscan.segsum_sorted(skey_s, raw_s))
     b_ms = device_ms(lambda: segscan.segsum_sorted(skey_s, raw_s))
     i_ms = device_ms(lambda: torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s))
     n_i, w_i = raw_s.shape
     b_bound = bound(n_i * 4 + 2 * n_i * w_i * 4, n_i * w_i)["bound_ms"]
     print(f"insert's shape N={n_i} W={w_i} voxels={int(head_i.sum())}: "
-          f"kernel B {b_ms:.5f} ms (bound {b_bound:.5f} ms, bytes), "
+          f"kernel B {b_ms:.5f} ms (bound {b_bound:.5f} ms, bytes; "
+          f"{b_call_ms:.4f} ms per wrapper call), "
           f"zeros_like + index_add_ {i_ms:.5f} ms (device), rel_err={rel:.3e}")
     res.update(insert_shape_ms=b_ms, insert_shape_index_add_ms=i_ms,
-               insert_shape_bound_ms=b_bound)
+               insert_shape_bound_ms=b_bound, insert_shape_call_ms=b_call_ms)
     return res
 
 
@@ -618,21 +667,15 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
 STAGES = ("predict", "preprocess", "align", "pose_update", "map_insert", "evict")
 
 
-def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
-    """Where the time goes: a fresh replay of the same sequence with the
-    last `n_prof` rows under torch.profiler.  Reports the device's busy
-    time per scan (the sum of kernel durations), its idle share against the
-    unprofiled warm wall time per scan, each stage's host and device time,
-    and the kernels that take the most device time."""
-    import numpy as np
+def trace_scans(run_scans, n: int, scan_ms: float) -> dict:
+    """`run_scans()` (n scans; it must leave no state behind, since a trace
+    without device records is taken again, see device_profile) under
+    torch.profiler: the device's busy time per scan (the sum of kernel
+    durations), its idle share against the unprofiled wall time per scan
+    `scan_ms`, each stage's host and device time, launches per scan and the
+    kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    b_total = packed[1].dt.shape[0]
-    step, carry = start_replay(dev, config, packed[0])
-    carry, *_ = run_rows(step, carry, packed, slice(0, b_total - n_prof))
-    torch.cuda.synchronize()
-    n = int(np.asarray(packed[4][b_total - n_prof:]).sum())
 
     def dev_us(e, own):
         name = "self_device_time_total" if own else "device_time_total"
@@ -642,12 +685,12 @@ def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
     def on_device(e):
         return str(getattr(e, "device_type", "")).endswith("CUDA")
 
-    # a trace without device records is taken again (see device_profile)
     for attempt in range(8):
+        torch.cuda.synchronize()
         time.sleep(0.1 * attempt)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            run_rows(step, carry, packed, slice(b_total - n_prof, b_total))
+            run_scans()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         # the stage ranges appear twice: on the host, and mirrored on the
@@ -656,7 +699,7 @@ def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
         kernels = [e for e in events if on_device(e) and e.key not in STAGES]
         if kernels:
             break
-        print("  torch.profiler recorded no device kernel in the replay; tracing again")
+        print("  torch.profiler recorded no device kernel; tracing again")
     busy_ms = sum(dev_us(e, True) for e in kernels) / 1e3 / n
     stages = {}
     for e in events:
@@ -668,7 +711,8 @@ def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
                 row["host_ms"] = e.cpu_time_total / 1e3 / n
                 row["kernel_ms"] = dev_us(e, False) / 1e3 / n
     top = sorted(kernels, key=lambda e: -dev_us(e, True))[:10]
-    res = dict(
+    check(busy_ms > 0.0, "the profiled scans ran nothing on the device")
+    return dict(
         scans=n, busy_ms_per_scan=busy_ms, wall_ms_per_scan_unprofiled=scan_ms,
         wall_ms_per_scan_profiled=wall_ms / n,
         idle_share=1.0 - busy_ms / scan_ms,
@@ -679,8 +723,23 @@ def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
             for e in top
         ],
     )
+
+
+def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
+    """Where the time goes: a fresh replay of the same sequence with the
+    last `n_prof` rows under torch.profiler."""
+    import numpy as np
+    import torch
+
+    b_total = packed[1].dt.shape[0]
+    step, carry = start_replay(dev, config, packed[0])
+    carry, *_ = run_rows(step, carry, packed, slice(0, b_total - n_prof))
+    torch.cuda.synchronize()
+    n = int(np.asarray(packed[4][b_total - n_prof:]).sum())
+    res = trace_scans(
+        lambda: run_rows(step, carry, packed, slice(b_total - n_prof, b_total)), n, scan_ms
+    )
     print("profile " + json.dumps(res))
-    check(busy_ms > 0.0, "the profiled replay ran nothing on the device")
     return res
 
 
@@ -690,6 +749,9 @@ def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
 
 STREAM_REMOVE_PERIOD_S = 2.0
 STREAM_REMOVE_DISTANCE_M = 15.0
+# the digested reruns of the stream phase stop here: past the eviction of
+# update scan 20, short of the whole sequence
+RERUN_SCANS = 24
 
 
 def stream_config():
@@ -749,9 +811,14 @@ def maps_bit_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=None):
+def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(),
+          n_shards=None):
     """One driver run with the launch counters zeroed before and read after.
-    `run(on_scan)` starts it; returns its readings and checks its health."""
+    `run(on_scan)` starts it; returns its readings and the maps it held after
+    the scan counts in `keep_map_at`, and checks its health.  `n_shards`:
+    the run is a sharded driver's, which launches kernel A once per shard per
+    GN iteration and kernel B once in the downsampler and once per shard in
+    `insert`, and reports slice overflows."""
     import numpy as np
     import torch
 
@@ -763,8 +830,8 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=N
 
     def on_scan(o):
         stamps.append(time.perf_counter())
-        if keep_map_at is not None and len(o.trajectory_t) == keep_map_at:
-            kept["voxmap"] = o.voxmap  # the step builds new tensors, never in place
+        if len(o.trajectory_t) in keep_map_at:
+            kept[len(o.trajectory_t)] = o.voxmap  # the step builds new tensors, never in place
 
     for k in kernels:
         k.launches = 0
@@ -795,8 +862,10 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=N
                    if int(d["removed_voxels"]) > 0],
         dropped_points=int(sum(int(d["dropped_points"]) for d in diags)),
         dropped_raw_points=int(sum(int(d["dropped_raw_points"]) for d in diags)),
-        max_align_slice_overflow=int(max(int(d["align_slice_overflow"]) for d in diags)),
     )
+    for key in (("gn_slice_overflow", "insert_slice_overflow") if n_shards
+                else ("align_slice_overflow",)):
+        res[f"max_{key}"] = int(max(int(d[key]) for d in diags))
     if count_syncs:
         # torch's sync debug mode warns at each call that waits for the
         # device, a blocking upload included; by calling line, per scan
@@ -815,11 +884,13 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=N
     check(not summary["diverged"], "a streaming run diverged")
     check(conv > MIN_CONVERGENCE, f"streaming convergence {conv:.3f} <= {MIN_CONVERGENCE}")
     check(ate_cm <= MAX_ATE_CM, f"streaming ATE {ate_cm:.2f} cm > {MAX_ATE_CM} cm")
-    check(launches["gn_normal_eq"] == iters,
-          f"kernel A launches {launches['gn_normal_eq']} != GN iterations {iters}")
-    check(launches["segscan"] == 2 * n_upd + 2,
-          f"kernel B launches {launches['segscan']} != 2 x update scans + 2 = {2 * n_upd + 2}")
-    return res, kept.get("voxmap")
+    per_iter, per_scan = (n_shards or 1), 1 + (n_shards or 1)
+    check(launches["gn_normal_eq"] == per_iter * iters,
+          f"kernel A launches {launches['gn_normal_eq']} != {per_iter} x GN iterations {iters}")
+    # the downsampler and `insert`, on every update scan and on the init scan
+    check(launches["segscan"] == per_scan * (n_upd + 1),
+          f"kernel B launches {launches['segscan']} != {per_scan} x {n_upd + 1} scans")
+    return res, kept
 
 
 def stream_phase(seq, kernels, replay_scans_per_s: float):
@@ -829,27 +900,28 @@ def stream_phase(seq, kernels, replay_scans_per_s: float):
     from eskf_lio_torch.pipeline.stream import StreamingRunner, merged_stream
 
     config = stream_config()
-    n = len(seq.scans)
+    n, m = len(seq.scans), RERUN_SCANS
 
-    # each driver twice, in turns: timed; then with the step's inputs digested
-    # (and, for the synchronous one, the device syncs counted)
+    # each driver twice, in turns: timed over the whole sequence; then over
+    # its first `m` scans with the step's inputs digested (and, for the
+    # synchronous one, the device syncs counted)
     sync = Odometry(config)  # the default device is the card
     check(sync.device.type == "cuda", "Odometry did not default to the card")
-    res_a, map_at_39 = drive(lambda cb: sync.run(seq, on_scan=cb), sync, kernels, seq,
-                             keep_map_at=n - 1)
+    res_a, maps = drive(lambda cb: sync.run(seq, on_scan=cb), sync, kernels, seq,
+                        keep_map_at=(m, n - 1))
     runner = StreamingRunner(config)
     res_b, _ = drive(lambda cb: runner.run(merged_stream(seq), on_scan=cb), runner.odo,
                      kernels, seq)
     again, digests_a = Odometry(config), []
-    res_a2, _ = drive(lambda cb: again.run(seq, on_scan=cb), again, kernels, seq,
+    res_a2, _ = drive(lambda cb: again.run(seq, max_scans=m, on_scan=cb), again, kernels, seq,
                       digests=digests_a, count_syncs=True)
     runner2, digests_b = StreamingRunner(config), []
-    res_b2, _ = drive(lambda cb: runner2.run(merged_stream(seq), on_scan=cb), runner2.odo,
-                      kernels, seq, digests=digests_b)
+    res_b2, _ = drive(lambda cb: runner2.run(merged_stream(seq), max_scans=m, on_scan=cb),
+                      runner2.odo, kernels, seq, digests=digests_b)
     same_bits = (
-        np.array_equal(np.stack(sync.trajectory_p), np.stack(again.trajectory_p))
-        and np.array_equal(np.stack(sync.trajectory_R), np.stack(again.trajectory_R))
-        and maps_bit_equal(sync.voxmap, again.voxmap)
+        np.array_equal(np.stack(sync.trajectory_p[:m]), np.stack(again.trajectory_p))
+        and np.array_equal(np.stack(sync.trajectory_R[:m]), np.stack(again.trajectory_R))
+        and maps_bit_equal(maps[m], again.voxmap)
     )
 
     res = dict(
@@ -857,7 +929,8 @@ def stream_phase(seq, kernels, replay_scans_per_s: float):
                f"remove_distance_threshold {STREAM_REMOVE_DISTANCE_M} m, so that an "
                "eviction fires inside the step (the replay phase ends before the "
                "default 10 s period, and the 20 m room has nothing beyond 100 m)",
-        scans=n, ingest=runner.ingest, replay_warm_half_scans_per_s=replay_scans_per_s,
+        scans=n, digested_scans=m, ingest=runner.ingest,
+        replay_warm_half_scans_per_s=replay_scans_per_s,
         synchronous=res_a, threaded=res_b,
         # the second pair of runs, slowed alike by the digest's reads
         digested_scans_per_s={"synchronous": res_a2["scans_per_s"],
@@ -870,13 +943,13 @@ def stream_phase(seq, kernels, replay_scans_per_s: float):
     print("stream " + json.dumps(res))
     check(res_a["scans"] == res_b["scans"] == n,
           f"drivers processed {res_a['scans']} and {res_b['scans']} of {n} scans")
-    check(len(digests_a) == n - 1 and digests_a == digests_b,
+    check(len(digests_a) == m - 1 and digests_a == digests_b,
           "the threaded and the synchronous driver fed the step different inputs")
-    check(bool(res_a["evictions"]) and bool(res_b["evictions"]),
+    check(all(bool(r["evictions"]) for r in (res_a, res_b, res_a2, res_b2)),
           "no eviction removed a voxel inside the step")
     check(same_bits, "two runs of the synchronous driver differ in their bits")
     launches = {"stream_synchronous": res_a["launches"], "stream_threaded": res_b["launches"]}
-    return sync, map_at_39, launches
+    return sync, maps[n - 1], launches
 
 
 def continue_run(odo, seq, start: int, stop: int) -> None:
@@ -995,6 +1068,381 @@ def cli_phase(kernels) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the sharded map and the multi-process runtime
+# ---------------------------------------------------------------------------
+
+N_SHARDS = 4
+MAX_SHARDED_VS_SINGLE_M = 0.02
+MAX_DIST_VS_SHARDED_M = 1e-3
+DIST_SCANS = 20
+DIST_CHECKPOINT_AT = 10
+DIST_TIMEOUT_S = 300
+
+
+def slice_kernel_phase(dev, config, scan_points) -> dict:
+    """Both kernels at the shapes a shard of a D = 4 map gives them, against
+    their plain versions with the tolerances of the kernel phases."""
+    import torch
+
+    from eskf_lio_torch.ops import gn_normal_eq as gn
+    from eskf_lio_torch.ops import segscan
+    from eskf_lio_torch.parallel.sharded_map import slice_capacity
+
+    n_a = slice_capacity(config.align_capacity, N_SHARDS, config.shard_slack)
+    args = gn_inputs(n_a, 31, dev)
+    out_k, out_p = gn.normal_equations_rotated(*args), gn.normal_equations_rotated_ref(*args)
+    abs_a, rel_a = gn_rel_err(args, out_k, out_p)
+    check(rel_a <= GN_TOL, "kernel A disagrees with its plain version at a shard's GN slice")
+    check(int(out_k[2]) == int(args[5].sum()), "kernel A's count is wrong at a shard's GN slice")
+    a = dict(
+        n=n_a, max_abs_err=abs_a, rel_err=rel_a,
+        call_ms=event_ms(lambda: gn.normal_equations_rotated(*args)),
+        ms=device_ms(lambda: gn.normal_equations_rotated(*args)),
+        plain_ms=device_ms(lambda: gn.normal_equations_rotated_ref(*args)),
+        **bound(n_a * ((3 + 6 + 3 + 6) * 4 + 1) + 9 * 4 + 43 * 4,
+                GN_FLOP_PER_POINT * int(args[5].sum())),
+    )
+
+    skey_s, raw_s, head, seg_id = insert_rows(dev, config, scan_points, N_SHARDS)
+    n_b, w = raw_s.shape
+    check(n_b == slice_capacity(config.max_scan_points, N_SHARDS, config.shard_slack),
+          f"a shard's insert slice has {n_b} rows")
+    out_b = segscan.segsum_sorted(skey_s, raw_s)
+    out_r = segscan.segsum_sorted_ref(skey_s, raw_s)
+    scale = segscan.segsum_sorted_ref(skey_s, raw_s.abs())
+    diff = (out_b[head] - out_r[head]).abs()
+    rel_b = (diff / scale[head].clamp(min=1e-30)).max().item()
+    check(rel_b <= SEG_TOL, "kernel B disagrees with its plain version at a shard's insert slice")
+    b = dict(
+        n=n_b, w=w, voxels=int(head.sum()), max_abs_err=diff.max().item(), rel_err=rel_b,
+        call_ms=event_ms(lambda: segscan.segsum_sorted(skey_s, raw_s)),
+        ms=device_ms(lambda: segscan.segsum_sorted(skey_s, raw_s)),
+        plain_ms=device_ms(lambda: segscan.segsum_sorted_ref(skey_s, raw_s)),
+        library_ms=device_ms(lambda: torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)),
+        **bound(n_b * 4 + 2 * n_b * w * 4, n_b * w),
+    )
+    res = {"gn_normal_eq": a, "segscan": b, "tolerance": {"gn": GN_TOL, "seg": SEG_TOL}}
+    print("slice_shapes " + json.dumps(res))
+    return res
+
+
+def distinct_voxels(voxmap) -> int:
+    """Distinct live keys over both tiers (`num_voxels()` assumes one
+    globally sorted main tier, which concatenated blocks are not)."""
+    import torch
+
+    from eskf_lio_torch.ops import sortmerge as sm
+
+    keys = torch.cat([voxmap.skey, voxmap.d_skey])
+    return int(torch.unique(keys[keys != sm.INT32_MAX]).numel())
+
+
+def point_mass(voxmap) -> float:
+    return float(voxmap.payload[:, 0].sum() + voxmap.d_payload[:, 0].sum())
+
+
+def sharded_phase(seq, kernels, single, slices):
+    """`ShardedOdometry(n_devices=4)` in this process beside the
+    single-device run of the stream phase (`single`, the same config and
+    sequence); `slices` is what `slice_kernel_phase` measured."""
+    import numpy as np
+    import torch
+
+    from eskf_lio_torch.ops import sortmerge as sm
+    from eskf_lio_torch.ops import voxel as vx
+    from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
+
+    config = stream_config()
+    first = ShardedOdometry(config, n_devices=N_SHARDS)  # the default device is the card
+    check(first.device.type == "cuda", "ShardedOdometry did not default to the card")
+    check(len(first.voxmap.blocks) == N_SHARDS
+          and first.voxmap.blocks[0].capacity == config.hash_capacity // N_SHARDS,
+          "the map was not cut into four blocks of 2^19 / 4 slots")
+    res_1, _ = drive(lambda cb: first.run(seq, on_scan=cb), first, kernels, seq,
+                     n_shards=N_SHARDS)
+    again = ShardedOdometry(config, n_devices=N_SHARDS)
+    step, last_call = again.scan_step, {}
+
+    def keep_last_call(*args):
+        last_call["args"] = args
+        return step(*args)
+
+    again.scan_step = keep_last_call
+    res_2, _ = drive(lambda cb: again.run(seq, on_scan=cb), again, kernels, seq,
+                     n_shards=N_SHARDS, count_syncs=True)
+    # where the sharded step's time goes: its last scan five more times (the
+    # step is a function of its arguments; it builds new tensors)
+    n_prof = 5
+    profiled = trace_scans(lambda: [step(*last_call["args"]) for _ in range(n_prof)],
+                           n_prof, res_1["avg_step_ms"])
+    print("sharded_profile " + json.dumps(profiled))
+    same_bits = (
+        np.array_equal(np.stack(first.trajectory_p), np.stack(again.trajectory_p))
+        and np.array_equal(np.stack(first.trajectory_R), np.stack(again.trajectory_R))
+        and all(maps_bit_equal(x, y) for x, y in zip(first.voxmap.blocks, again.voxmap.blocks))
+    )
+
+    # every live key of block d, in both tiers, is owned by shard d
+    foreign = 0
+    for d, block in enumerate(first.voxmap.blocks):
+        for skey in (block.skey, block.d_skey):
+            live = skey[skey != sm.INT32_MAX]
+            keys = sm.unpack_keys(sm.packed_of_skey(live), block.origin)
+            foreign += int((vx.owner_hash(keys, N_SHARDS) != d).sum())
+    whole = first.voxmap.gather()
+    voxels = (distinct_voxels(whole), distinct_voxels(single.voxmap))
+    mass = (point_mass(whole), point_mass(single.voxmap))
+    apart_m = float(np.linalg.norm(first.positions - single.positions, axis=1).max())
+
+    res = dict(
+        shards=N_SHARDS, shard_slots=first.voxmap.blocks[0].capacity,
+        gn_slice_rows=slices["gn_normal_eq"]["n"], insert_slice_rows=slices["segscan"]["n"],
+        first=res_1, second_scans_per_s=res_2["scans_per_s"],
+        single_device_scans_per_s=single.summary()["scans_per_sec"],
+        device_syncs_per_scan=res_2["device_syncs_per_scan"],
+        sync_sites_per_scan=res_2["sync_sites_per_scan"],
+        launches_per_scan=profiled["launches_per_scan"],
+        busy_ms_per_scan=profiled["busy_ms_per_scan"], idle_share=profiled["idle_share"],
+        max_distance_from_single_device_m=apart_m,
+        distinct_voxels={"sharded": voxels[0], "single": voxels[1]},
+        point_mass={"sharded": mass[0], "single": mass[1]},
+        foreign_keys=foreign, twice_bit_equal=same_bits,
+    )
+    print("sharded " + json.dumps(res))
+    check(res_1["scans"] == len(seq.scans), f"the sharded driver processed {res_1['scans']} scans")
+    check(apart_m <= MAX_SHARDED_VS_SINGLE_M,
+          f"sharded positions {apart_m:.4f} m from the single-device run's")
+    check(res_1["max_gn_slice_overflow"] == 0 and res_1["max_insert_slice_overflow"] == 0,
+          "an owner slice overflowed")
+    check(bool(res_1["evictions"]), "no eviction removed a voxel inside the sharded step")
+    check(foreign == 0, f"{foreign} live keys lie in a block that does not own them")
+    check(abs(voxels[0] - voxels[1]) <= 0.02 * voxels[1], f"distinct voxels diverged: {voxels}")
+    check(abs(mass[0] - mass[1]) <= 0.02 * mass[1], f"point mass diverged: {mass}")
+    check(same_bits, "two runs of the sharded driver differ in their bits")
+    return first, res_1["launches"]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cli_processes(jobs: dict) -> dict:
+    """Start every (name -> argv of `python -m eskf_lio_torch.cli`) together,
+    wait for each under a timeout, kill what is left.  Returns name ->
+    stdout; a process that fails or hangs fails the smoke."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = {
+        name: subprocess.Popen(
+            [sys.executable, "-m", "eskf_lio_torch.cli", *argv], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for name, argv in jobs.items()
+    }
+    out, deadline = {}, time.perf_counter() + DIST_TIMEOUT_S
+    try:
+        for name, p in procs.items():
+            try:
+                stdout, stderr = p.communicate(timeout=max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"process {name} did not end within {DIST_TIMEOUT_S} s")
+            check(p.returncode == 0, f"process {name} exited {p.returncode}:\n{stderr[-3000:]}")
+            out[name] = stdout
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def all_reduce_report(stdout: str) -> dict:
+    """The command line's own count of its all-reduces (a multi-process run
+    prints it): calls, and host ms per call in all and inside the backend."""
+    found = re.search(r"all-reduce: (\d+) calls, ([\d.]+) ms per call on the host "
+                      r"\(([\d.]+) ms in the backend\)", stdout)
+    check(found is not None, "a process did not report its all-reduces")
+    return dict(calls=int(found[1]), ms_per_call=float(found[2]),
+                backend_ms_per_call=float(found[3]))
+
+
+def dist_phase(seq, sharded) -> dict:
+    """Two processes of the command line, two shards each, both on the one
+    card (`gloo`), against the one-process run of the sharded phase."""
+    import numpy as np
+
+    from eskf_lio_torch.config import load_config
+    from eskf_lio_torch.io import dataset, export
+    from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        with open(path("heavy.yaml"), "w") as f:
+            f.write(HEAVY_YAML)
+        check(load_config(path("heavy.yaml")) == heavy_config(), "the dist phase's YAML is not HEAVY")
+        # the sequence's first scans as files: all of them, and those after
+        # the checkpoint for the resumed run (a driver drops the IMU samples
+        # before its filter clock)
+        t0 = time.perf_counter()
+        cut = dataclasses.replace(seq, scans=seq.scans[:DIST_SCANS])
+        dataset.save_npz(path("all.npz"), cut)
+        dataset.save_npz(path("rest.npz"),
+                         dataclasses.replace(seq, scans=seq.scans[DIST_CHECKPOINT_AT:DIST_SCANS]))
+        write_s = time.perf_counter() - t0
+
+        def argv(tag, i, port, *more):
+            return ["--config", path("heavy.yaml"), "--devices", str(N_SHARDS),
+                    "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+                    "--process-id", str(i), "--traj-out", path(f"{tag}{i}.json"),
+                    "--cloud-out", path(f"{tag}{i}.pcd"),
+                    "--checkpoint-out", path(f"{tag}{i}.ckpt"), *more]
+
+        # the straight run and the run that stops at the checkpoint, together
+        ports = free_port(), free_port()
+        t0 = time.perf_counter()
+        outs = run_cli_processes({
+            **{f"straight{i}": argv("straight", i, ports[0], "--input", path("all.npz"))
+               for i in range(2)},
+            **{f"head{i}": argv("head", i, ports[1], "--input", path("all.npz"),
+                                "--max-scans", str(DIST_CHECKPOINT_AT)) for i in range(2)},
+        })
+        first_s = time.perf_counter() - t0
+        port = free_port()
+        t0 = time.perf_counter()
+        outs.update(run_cli_processes({
+            f"resumed{i}": argv("resumed", i, port, "--input", path("rest.npz"),
+                                "--resume-from", path("head0.ckpt")) for i in range(2)
+        }))
+        resumed_s = time.perf_counter() - t0
+        for line in outs["straight0"].splitlines():
+            print(f"  dist process 0: {line}")
+
+        for i in range(2):
+            check(f"distributed: process {i}/2" in outs[f"straight{i}"],
+                  f"process {i} did not join a group of two")
+        wrote_1 = [n for n in os.listdir(tmp) if n.split(".")[0] in ("straight1", "head1", "resumed1")]
+        check(not wrote_1, f"process 1 wrote {wrote_1}")
+
+        _, Rs, ps = export.read_trajectory_json(path("straight0.json"))
+        positions = np.asarray(ps, np.float32)
+        check(len(positions) == DIST_SCANS, f"{len(positions)} poses for {DIST_SCANS} scans")
+        # the same four shards in one process, on the same file and config
+        one = ShardedOdometry(heavy_config(), n_devices=N_SHARDS)
+        one.run(dataset.load_npz(path("all.npz")))
+        apart_m = float(np.linalg.norm(positions - one.positions, axis=1).max())
+        from_memory_m = float(np.linalg.norm(
+            positions - sharded.positions[:DIST_SCANS], axis=1).max())
+        _, Rs_r, ps_r = export.read_trajectory_json(path("resumed0.json"))
+        resumed_equal = (np.array_equal(np.asarray(ps_r), np.asarray(ps))
+                         and np.array_equal(np.asarray(Rs_r), np.asarray(Rs)))
+        with np.load(path("straight0.ckpt/arrays.npz")) as z:
+            keys = np.concatenate([z["voxmap_1"], z["voxmap_4"]])
+            voxels = len(np.unique(keys[keys != np.iinfo(np.int32).max]))
+        with open(path("straight0.pcd")) as f:
+            points = next(int(l.split()[1]) for l in f if l.startswith("POINTS"))
+        res = dict(
+            processes=2, shards=N_SHARDS, backend="gloo", scans=DIST_SCANS,
+            max_distance_from_one_process_m=apart_m,
+            max_distance_from_the_sharded_phase_m=from_memory_m,
+            resumed_equals_straight=resumed_equal,
+            distinct_voxels=voxels, pcd_points=points,
+            # per GN iteration and once per scan; the straight run shared the
+            # host with the run that stopped at the checkpoint (four
+            # processes), the resumed run had it to itself (two)
+            all_reduce={"four_processes_at_once": all_reduce_report(outs["straight0"]),
+                        "two_processes": all_reduce_report(outs["resumed0"])},
+            reported_scans_per_s=float(outs["straight0"].split("throughput = ")[1].split()[0]),
+            sequence_files_s=write_s, four_processes_wall_s=first_s,
+            two_processes_resumed_wall_s=resumed_s,
+        )
+        print("dist " + json.dumps(res))
+        check(apart_m <= MAX_DIST_VS_SHARDED_M,
+              f"two processes are {apart_m:.5f} m from the one-process sharded run")
+        check(from_memory_m <= MAX_SHARDED_VS_SINGLE_M,
+              f"two processes on the file are {from_memory_m:.4f} m from the sharded phase's run")
+        check(points == voxels > 1000, f"PCD POINTS {points} != distinct voxels {voxels}")
+        check(resumed_equal, "the resumed two-process run differs from the straight one")
+        check(res["all_reduce"]["four_processes_at_once"]["calls"] > DIST_SCANS,
+              "the run made no all-reduce per GN iteration")
+        return res
+
+
+def staged_phase(seq, kernels, sharded) -> dict:
+    """What the process group adds to a scan, counted in this process: the
+    sharded driver under a `gloo` group of one process that is told it shares
+    its card (so its all-reduces are staged through the host, as the dist
+    phase's are), with the device syncs counted by calling line."""
+    import numpy as np
+    import torch
+
+    from eskf_lio_torch.parallel import distributed as dist
+    from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
+
+    check(dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, processes_per_host=2,
+                          timeout_s=60.0) == (1, 0), "a group of one process did not form")
+    try:
+        backend = torch.distributed.get_backend()
+        check(backend == "gloo", f"a process that shares its card took {backend}")
+        odo = ShardedOdometry(stream_config(), n_devices=N_SHARDS)
+        dist.ALL_REDUCE.reset()
+        run, _ = drive(lambda cb: odo.run(seq, max_scans=RERUN_SCANS, on_scan=cb), odo, kernels,
+                       seq, n_shards=N_SHARDS, count_syncs=True)
+        stats = dataclasses.asdict(dist.ALL_REDUCE)
+    finally:
+        dist.shutdown(wait=False)
+    same_bits = np.array_equal(odo.positions, sharded.positions[:RERUN_SCANS])
+    res = dict(
+        backend=backend, world_size=1, scans=RERUN_SCANS, gn_iterations=run["gn_iterations"],
+        all_reduce_calls=stats["calls"],
+        all_reduce_ms_per_call=1e3 * stats["seconds"] / max(stats["calls"], 1),
+        all_reduce_backend_ms_per_call=1e3 * stats["backend_seconds"] / max(stats["calls"], 1),
+        device_syncs_per_scan=run["device_syncs_per_scan"],
+        sync_sites_per_scan=run["sync_sites_per_scan"], scans_per_s=run["scans_per_s"],
+        equals_the_run_without_a_group=same_bits,
+    )
+    print("staged " + json.dumps(res))
+    # one all-reduce per GN iteration, one per update scan, one for the init scan
+    check(stats["calls"] == run["gn_iterations"] + RERUN_SCANS,
+          f"{stats['calls']} all-reduces for {run['gn_iterations']} GN iterations "
+          f"and {RERUN_SCANS} scans")
+    check(same_bits, "a group of one process changed the trajectory")
+    return res
+
+
+def nccl_phase(dev) -> dict:
+    """A process group of one process on the card takes `nccl`; one
+    all-reduce of the 43 floats through the sharded step's `reduce_fn`."""
+    import torch
+
+    from eskf_lio_torch.ops import gn_normal_eq as gn
+    from eskf_lio_torch.parallel import distributed as dist
+    from eskf_lio_torch.parallel import sharded_map
+
+    check(dist.initialize(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=60.0) == (1, 0),
+          "a group of one process did not form")
+    try:
+        backend = torch.distributed.get_backend()
+        check(backend == "nccl", f"one process with a card of its own took {backend}")
+        JTJ, JTr, n = gn.normal_equations_rotated(*gn_inputs(8192, 32, dev))
+        reduce_fn = sharded_map._shard_sum_fn(1)
+        dist.ALL_REDUCE.reset()
+        out = reduce_fn(JTJ[None], JTr[None], n[None])
+        torch.cuda.synchronize()
+        check(dist.ALL_REDUCE.calls == 1, "reduce_fn did not call the all-reduce once")
+        check(torch.equal(out[0], JTJ) and torch.equal(out[1], JTr) and torch.equal(out[2], n),
+              "a one-process all-reduce changed the normal equations")
+        res = dict(backend=backend, world_size=1, floats=43,
+                   reduce_fn_ms=event_ms(lambda: reduce_fn(JTJ[None], JTr[None], n[None])))
+    finally:
+        dist.shutdown(wait=False)
+    print("nccl " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1035,6 +1483,9 @@ def main() -> int:
         scan0 = torch.as_tensor(seq.scans[1].points[: config.max_raw_points], device=dev)
         res_a = kernel_a_phase(dev, config.align_capacity)
         res_b = kernel_b_phase(dev, config, scan0)
+        # with the other kernel timings: torch.profiler's traces of single
+        # kernels came back short after the replay's long trace
+        slices = slice_kernel_phase(dev, config, scan0)
         from eskf_lio_torch.pipeline import replay
 
         if "--kernels-only" in sys.argv[1:]:
@@ -1049,6 +1500,10 @@ def main() -> int:
         by_path.update(launches)
         resume_phase(seq, straight, straight_map)
         by_path["cli"] = cli_phase(kernels)
+        sharded, by_path["sharded"] = sharded_phase(seq, kernels, straight, slices)
+        dist_phase(seq, sharded)
+        staged_phase(seq, kernels, sharded)
+        nccl_phase(dev)
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1079,7 +1534,10 @@ def main() -> int:
         # kernel B at its second call site (insert's [32,768, 10] rows) with
         # its bound and the zeros_like + index_add_ it replaced there
         "empty_launch_ms": res_a["empty_launch_ms"],
+        # both kernels at the shapes a shard of the four-way map gives them
+        "slice_shapes": slices,
         "insert_shape": {"segscan_ms": res_b["insert_shape_ms"],
+                         "call_ms": res_b["insert_shape_call_ms"],
                          "bound_ms": res_b["insert_shape_bound_ms"],
                          "index_add_ms": res_b["insert_shape_index_add_ms"]},
     }

@@ -10,6 +10,13 @@ file or directory, or the built-in synthetic simulator.
 The run is on the card (`--device cuda`, the default) and refuses to start
 without one; `--device cpu` runs the plain PyTorch path on the CPU.
 
+`--devices D` shards the map D ways (`parallel/sharded_map.py`): in one
+process all D shards lie on the one device; with `--coordinator HOST:PORT
+--num-processes P --process-id I` the same command runs as P processes (one
+per GPU; D / P shards each), every process reads the same input, and process
+0 writes the artifacts.  As in the JAX CLI, `--stream` and `--replay` run
+single-device and ignore `--devices`.
+
 Usage:
     python -m eskf_lio_torch.cli --config config/hilti.yaml \
         --input seq.npz --cloud-out map.pcd --traj-out traj.json
@@ -55,11 +62,14 @@ def main(argv: list[str] | None = None) -> int:
     )
     ap.add_argument(
         "--devices", type=int, default=1,
-        help="shard the map over this many devices (not ported yet)",
+        help="shard the map this many ways (the default scan-at-a-time mode; "
+        "--stream and --replay run single-device and ignore it); the shards "
+        "are dealt to the processes, all of a process's on its one device",
     )
     ap.add_argument(
         "--coordinator", default=None, metavar="HOST:PORT",
-        help="multi-host coordinator address (not ported yet)",
+        help="multi-process: address of process 0 for torch.distributed (also "
+        "via ESKF_LIO_COORDINATOR); every process runs this same command",
     )
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -85,20 +95,31 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--resume-from", default=None)
     args = ap.parse_args(argv)
 
-    # the sharded map and the multi-process run are not ported: refuse,
-    # never run on one device in silence
-    if (
-        args.devices > 1
-        or args.coordinator
-        or (args.num_processes or 1) > 1
-        or args.process_id
-    ):
-        ap.error(
-            "--devices > 1 / --coordinator / --num-processes / --process-id "
-            "need the sharded map and the multi-process runtime (`parallel/`), "
-            "which this package does not have yet: ROADMAP.md queue 1 item 15"
-        )
+    # multi-process: form the process group BEFORE any device use (it
+    # also makes this process's card the current device)
+    from eskf_lio_torch.parallel import distributed as dist
 
+    try:
+        n_procs, proc_id = dist.initialize(
+            coordinator=args.coordinator,
+            num_processes=args.num_processes,
+            process_id=args.process_id,
+            device=args.device,
+        )
+    except ValueError as exc:
+        ap.error(str(exc))
+    if n_procs > 1:
+        print(f"distributed: process {proc_id}/{n_procs}")
+    try:
+        rc = _run(ap, args, n_procs, proc_id)
+    except BaseException:
+        dist.shutdown(wait=False)  # a failed process does not wait for its peers
+        raise
+    dist.shutdown()
+    return rc
+
+
+def _run(ap, args, n_procs: int, proc_id: int) -> int:
     from eskf_lio_torch import device as device_policy
     from eskf_lio_torch.config import Config, ImuConfig, load_config
     from eskf_lio_torch.io import dataset, export
@@ -185,9 +206,14 @@ def main(argv: list[str] | None = None) -> int:
 
             checkpoint.save_checkpoint(args.checkpoint_out, odo)
     else:
-        from eskf_lio_torch.pipeline.odometry import Odometry
+        if args.devices > 1:
+            from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
 
-        odo = Odometry(config, device=device)
+            odo = ShardedOdometry(config, n_devices=args.devices, device=device)
+        else:
+            from eskf_lio_torch.pipeline.odometry import Odometry
+
+            odo = Odometry(config, device=device)
         if args.resume_from:
             from eskf_lio_torch.utils import checkpoint
 
@@ -203,6 +229,13 @@ def main(argv: list[str] | None = None) -> int:
         print(f"step max elapsed time = {summary['max_step_ms']:.2f} ms")
         print(f"throughput = {summary['scans_per_sec']:.1f} scans/s")
         print(f"map voxels = {summary['map_voxels']}")
+        if n_procs > 1:
+            from eskf_lio_torch.parallel.distributed import ALL_REDUCE
+
+            per_call = 1e3 / max(ALL_REDUCE.calls, 1)
+            print(f"all-reduce: {ALL_REDUCE.calls} calls, "
+                  f"{ALL_REDUCE.seconds * per_call:.3f} ms per call on the host "
+                  f"({ALL_REDUCE.backend_seconds * per_call:.3f} ms in the backend)")
         if args.checkpoint_out:
             from eskf_lio_torch.utils import checkpoint
 
@@ -213,15 +246,21 @@ def main(argv: list[str] | None = None) -> int:
         print(f"live view rendered {viewer.renders}x to {args.viz_live}")
 
     if args.cloud_out:
+        # the map extraction below is a collective under a process group
+        # (the shards are gathered) — run it on every process, write on
+        # process 0
         if args.dense_cloud:
             pts = export.map_to_dense_cloud(
                 odo.voxmap, samples_per_voxel=args.dense_cloud
             )
         else:
             pts, _ = export.map_to_cloud(odo.voxmap)
-        export.write_pcd(args.cloud_out, pts)
-        print(f"saved {args.cloud_out}")
+        if proc_id == 0:
+            export.write_pcd(args.cloud_out, pts)
+            print(f"saved {args.cloud_out}")
 
+    if n_procs > 1 and proc_id != 0:
+        return 0  # only process 0 writes the remaining artifacts
     if args.traj_out:
         export.write_trajectory_json(
             args.traj_out, odo.trajectory_t, odo.trajectory_R,

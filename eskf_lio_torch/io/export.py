@@ -10,7 +10,10 @@ reference's offline viewer workflow transfers.
 Port of `eskf_lio_tpu/io/export.py`: the map is folded on its device, read
 to the host once per field, and everything after that is numpy — the dense
 cloud draws from `np.random.default_rng(seed)` on the host, so both
-packages give the same cloud from the same map.
+packages give the same cloud from the same map.  A sharded map is gathered
+first (under a process group a collective: every process calls, and gets the
+cloud), then folded as one map, as the JAX package does with its global
+arrays.
 """
 
 from __future__ import annotations
@@ -21,15 +24,16 @@ import numpy as np
 
 from eskf_lio_torch.map import voxel_map as _vm
 from eskf_lio_torch.map.voxel_map import VoxelMap
+from eskf_lio_torch.parallel.sharded_map import ShardedVoxelMap, whole_map
 from eskf_lio_torch.utils.convert import to_numpy
 
 
 def map_to_cloud(
-    voxmap: VoxelMap, max_points_per_voxel: int = 1000
+    voxmap: VoxelMap | ShardedVoxelMap, max_points_per_voxel: int = 1000
 ) -> tuple[np.ndarray, np.ndarray]:
     """Extract (points [N,3], counts [N]) for occupied voxels (the LSM delta
     tier is folded in first)."""
-    voxmap, _ = _vm.compact(voxmap, max_points_per_voxel=max_points_per_voxel)
+    voxmap, _ = _vm.compact(whole_map(voxmap), max_points_per_voxel=max_points_per_voxel)
     occ = to_numpy(voxmap.live())
     means = to_numpy(voxmap.mean)[occ]
     counts = to_numpy(voxmap.count)[occ]
@@ -37,7 +41,7 @@ def map_to_cloud(
 
 
 def map_to_dense_cloud(
-    voxmap: VoxelMap,
+    voxmap: VoxelMap | ShardedVoxelMap,
     samples_per_voxel: int = 16,
     max_points_per_voxel: int = 1000,
     seed: int = 0,
@@ -50,7 +54,7 @@ def map_to_dense_cloud(
     from the voxel's Gaussian N(mean, cov).  Deterministic given `seed`.
 
     Returns points [M, 3]."""
-    voxmap, _ = _vm.compact(voxmap, max_points_per_voxel=max_points_per_voxel)
+    voxmap, _ = _vm.compact(whole_map(voxmap), max_points_per_voxel=max_points_per_voxel)
     occ = to_numpy(voxmap.live())
     means = to_numpy(voxmap.mean)[occ].astype(np.float64)
     # [M, 3, 3] from the packed [M, 6] payload

@@ -6,11 +6,17 @@ queue and scan packing to Python.  Builds on demand with the repo Makefile;
 `pack_scan` has a numpy path for hosts without a compiler, and
 `native_available()` says which one runs.  This is host code: nothing here
 touches the device.
+
+Processes that start together (a multi-process run) must not load a library
+that another one is still linking: the check-and-build runs under an
+exclusive file lock (`native/.build.lock`), so one process builds and the
+others wait for it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -19,6 +25,7 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libeskf_runtime.so"))
+_LOCK_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, ".build.lock"))
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -45,11 +52,13 @@ def load(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and build_if_missing:
-        if not _try_build():
+    with open(_LOCK_PATH, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.exists(_LIB_PATH) and build_if_missing:
+            if not _try_build():
+                return None
+        if not os.path.exists(_LIB_PATH):
             return None
-    if not os.path.exists(_LIB_PATH):
-        return None
     lib = ctypes.CDLL(_LIB_PATH)
 
     lib.spsc_create.restype = ctypes.c_void_p

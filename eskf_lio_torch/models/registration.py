@@ -11,6 +11,11 @@ The JAX `lax.while_loop` becomes a Python loop that reads `converged` on
 the host once per GN iteration (one device sync per iteration; a CUDA
 graph or a device-side loop is later work).  The normal equations go
 through kernel A (`ops/gn_normal_eq.py`) unless `gn_backend="einsum"`.
+
+Two hooks serve the sharded map (`parallel/sharded_map.py`): `lookup_fn`
+answers from a map shard, and `reduce_fn` sums each iteration's normal
+equations over the shards before the solve, so that every shard (and every
+process) composes the same increment and reads the same `converged`.
 """
 
 from __future__ import annotations
@@ -114,11 +119,27 @@ def align(
     guess: Pose,
     config: Config,
     lookup_fn: Callable | None = None,
+    reduce_fn: Callable | None = None,
 ) -> AlignResult:
     """Iterated GN alignment (`ICP::align`, `Registration.cpp:7-35`).
 
     `lookup_fn(points_world) -> (mu [N,3], cov_packed [N,6], hit [N])`
-    defaults to the merged two-tier map lookup."""
+    defaults to the merged two-tier map lookup.
+
+    `reduce_fn(JTJ, JTr, num_corr) -> (JTJ, JTr, num_corr)` sees every
+    iteration's normal equations before the solve (the JAX package's `psum`
+    hook); without it they are used as they are, with no extra launch.
+
+    A scan with a leading axis — points [L, S, 3], covs [L, S, 3, 3], valid
+    [L, S]: the owner slices of L map shards held by this process — runs
+    ONE loop for all of them: `lookup_fn` answers for [L, S, 3] points, the
+    normal equations are taken slice by slice (kernel A once per slice) and
+    stacked as [L, 6, 6], [L, 6], [L], and `reduce_fn`, required then,
+    sums them.  The adaptive re-match predicate stays per slice, as it is
+    per device in the JAX package."""
+    sliced = scan.points.dim() == 3
+    if sliced and (lookup_fn is None or reduce_fn is None):
+        raise ValueError("a scan of owner slices needs lookup_fn and reduce_fn")
     if lookup_fn is None:
         def lookup_fn(pts):
             return vm.lookup(
@@ -130,6 +151,19 @@ def align(
     backend = resolve_backend(config)
     covs = scan.covs
     covs_packed = vm.pack_cov(covs).contiguous()  # loop-invariant (body frame)
+
+    def normal_eq(pts_w, covs, covs_packed, R_tot, mu, cov_map_packed, mask):
+        if backend == "fused":
+            # the kernel sums the mask too: no separate count launch
+            return gn_normal_eq.normal_equations_rotated(
+                pts_w, covs_packed, R_tot, mu, cov_map_packed, mask
+            )
+        covs_w = R_tot @ covs @ R_tot.T
+        JTJ, JTr = normal_equations(
+            pts_w, covs_w, mu, vm.unpack_cov(cov_map_packed), mask
+        )
+        return JTJ, JTr, mask.sum()
+
     relook = max(int(config.icp_relookup_every), 1)
     # adaptive lazy re-association (config.icp_rematch_threshold): re-match
     # while the previous increment could have moved a point across a voxel
@@ -141,29 +175,33 @@ def align(
     it, conv = 0, False
     num_corr = torch.zeros((), dtype=torch.int64, device=scan.points.device)
     corr = None
-    disp_prev = float("inf")
+    need = None  # adaptive: which slices re-match (one flag without slices)
     while it < config.icp_max_iterations and not conv:
         pts_w = lie.transform_points(R_tot, t_tot, scan.points)
-        if adaptive:
-            need = corr is None or disp_prev > delta
-        else:
-            need = corr is None or it % relook == 0
-        if need:
+        if corr is None or (it % relook == 0 if need is None else all(need)):
             corr = lookup_fn(pts_w)
+        elif need is not None and any(need):  # some slices re-match, not all
+            corr = tuple(
+                torch.stack([new[i] if need[i] else old[i] for i in range(len(need))])
+                for new, old in zip(lookup_fn(pts_w), corr)
+            )
         mu, cov_map_packed, hit = corr
         mask = scan.valid & hit
 
-        if backend == "fused":
-            # the kernel sums the mask too: no separate count launch
-            JTJ, JTr, num_corr = gn_normal_eq.normal_equations_rotated(
-                pts_w, covs_packed, R_tot, mu, cov_map_packed, mask
+        if sliced:
+            JTJ, JTr, num_corr = (
+                torch.stack(x) for x in zip(*(
+                    normal_eq(pts_w[i], covs[i], covs_packed[i], R_tot, mu[i],
+                              cov_map_packed[i], mask[i])
+                    for i in range(scan.points.shape[0])
+                ))
             )
         else:
-            num_corr = mask.sum()
-            covs_w = R_tot @ covs @ R_tot.T
-            JTJ, JTr = normal_equations(
-                pts_w, covs_w, mu, vm.unpack_cov(cov_map_packed), mask
+            JTJ, JTr, num_corr = normal_eq(
+                pts_w, covs, covs_packed, R_tot, mu, cov_map_packed, mask
             )
+        if reduce_fn is not None:
+            JTJ, JTr, num_corr = reduce_fn(JTJ, JTr, num_corr)
         R_d, t_d = solve_increment(JTJ, JTr, num_corr)
 
         # left-compose (`Registration.cpp:19`)
@@ -173,12 +211,12 @@ def align(
             # bound on any scan point's displacement by this increment,
             # rotating about the scan centroid c
             w = mask.to(pts_w.dtype)
-            n_valid = torch.clamp(w.sum(), min=1.0)
-            c = (pts_w * w[:, None]).sum(0) / n_valid
-            r_c = torch.sqrt(torch.max(((pts_w - c) ** 2).sum(-1) * w))
+            n_valid = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
+            c = (pts_w * w[..., None]).sum(-2) / n_valid
+            r_c = torch.sqrt((((pts_w - c[..., None, :]) ** 2).sum(-1) * w).amax(-1))
             theta = torch.arccos(torch.clamp(0.5 * (torch.trace(R_d) - 1.0), -1.0, 1.0))
-            drift = (R_d - torch.eye(3, dtype=pts_w.dtype, device=pts_w.device)) @ c + t_d
-            disp_prev = float(theta * r_c + torch.linalg.norm(drift))
+            drift = c @ (R_d - torch.eye(3, dtype=pts_w.dtype, device=pts_w.device)).T + t_d
+            need = (theta * r_c + torch.linalg.norm(drift, dim=-1) > delta).reshape(-1).tolist()
         it += 1
         conv = bool(conv_t)  # the one host sync of the iteration
     return AlignResult(

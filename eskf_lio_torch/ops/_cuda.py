@@ -9,6 +9,11 @@ reuse the libraries.  The libraries are loaded with `ctypes`; every C entry
 point returns `cudaGetLastError()` and `CudaKernel.launch` raises when it is
 not 0.  Nothing here runs when a module is imported: the CPU tests import
 every module on hosts without `nvcc`.
+
+Processes that start together (a multi-process run on one checkout) do not
+race: each builds to a temporary name of its own and renames it into place,
+which is atomic, so a library that exists is whole.  Two may build the same
+source at once; the second rename replaces an identical file.
 """
 
 from __future__ import annotations

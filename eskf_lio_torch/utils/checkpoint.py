@@ -10,8 +10,14 @@ The on-disk layout is the JAX package's, so a checkpoint written by either
 package loads into the other: `arrays.npz` holds `state_0..6` (p, v, q, ba,
 bg, g, P), `voxmap_0..6` (origin, skey, payload, view, d_skey, d_payload,
 d_view — the NamedTuple field order of both packages), `prev_R`, `prev_t`;
-`meta.pkl` holds the flags, clocks and trajectory lists.  Single device: the
-multi-host branches of the JAX module belong to `parallel/`.
+`meta.pkl` holds the flags, clocks and trajectory lists.
+
+A sharded run (`parallel.sharded_map.ShardedOdometry`) keeps the same
+layout: the `voxmap_i` leaves are the global arrays, every field but
+`origin` the concatenation of the shards' blocks in shard order, so a
+sharded checkpoint of either package loads into the other's driver with the
+same shard count.  Under a process group saving and loading are
+collectives: every process calls them; process 0 alone writes.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Any
 import numpy as np
 
 from eskf_lio_torch.map.voxel_map import VoxelMap
+from eskf_lio_torch.parallel import distributed as dist
+from eskf_lio_torch.parallel.sharded_map import ShardedVoxelMap
 from eskf_lio_torch.types import FilterState
 from eskf_lio_torch.utils.convert import (
     filter_state_from_numpy,
@@ -33,12 +41,22 @@ from eskf_lio_torch.utils.convert import (
 
 
 def save_checkpoint(path: str, odo) -> None:
-    """Snapshot an `Odometry` run to the directory `path`."""
+    """Snapshot an `Odometry` (or `ShardedOdometry`) run to the directory
+    `path`.
+
+    Under a process group this is a collective — every process must call it
+    (the shards' blocks are gathered to process 0); only process 0 touches
+    the filesystem."""
+    voxmap = odo.voxmap
+    if isinstance(voxmap, ShardedVoxelMap):
+        voxmap = voxmap.gather(root=0)
+    if dist.process_index() != 0:
+        return
     os.makedirs(path, exist_ok=True)
     flat = {}
     for i, leaf in enumerate(to_numpy(odo.state)):
         flat[f"state_{i}"] = leaf
-    for i, leaf in enumerate(to_numpy(odo.voxmap)):
+    for i, leaf in enumerate(to_numpy(voxmap)):
         flat[f"voxmap_{i}"] = leaf
     flat["prev_R"] = to_numpy(odo.prev_R)
     flat["prev_t"] = to_numpy(odo.prev_t)
@@ -58,6 +76,10 @@ def save_checkpoint(path: str, odo) -> None:
 def load_checkpoint(path: str, odo) -> Any:
     """Restore a snapshot into an existing `Odometry` instance (same config),
     its tensors placed on the instance's device.  Returns the instance.
+
+    Under a process group every process calls it with `path` readable
+    locally (a shared filesystem or a copy); each reads the full arrays and
+    a sharded driver keeps its own blocks of the map.
 
     `meta.pkl` is a pickle: load only checkpoints this program (or the JAX
     package) wrote."""

@@ -3,8 +3,11 @@ flags, modes and report lines, plus `--device`.
 
 The subprocess cases run with `--device cpu` (there is no card here) at the
 sizes of `tests/test_cli_config.py`; without the flag the CLI must refuse to
-start rather than run on the CPU, and the multi-device flags must exit with
-an error that names the roadmap item that ports them.
+start rather than run on the CPU.  The multi-device flags are served by
+`parallel/`: `--devices D` runs the sharded
+driver with the JAX CLI's report, and half a multi-process layout exits with
+an error that names what is missing, never as one process in silence.  (The
+two-process CLI run is in `tests/test_torch_distributed.py`.)
 """
 
 import argparse
@@ -95,11 +98,61 @@ def test_cli_refuses_to_run_without_a_card():
     "flags", [["--devices", "2"], ["--coordinator", "localhost:1234"], ["--num-processes", "2"]],
     ids=lambda f: f[0],
 )
-def test_cli_multi_device_flags_name_the_roadmap_item(flags, capsys):
+def test_cli_multi_device_flags_name_the_roadmap_item(flags, capsys, monkeypatch):
+    """Item 15 is ported: no flag is refused as "not ported" any more.
+    `--devices 2` runs (sharded, one process); a coordinator without the
+    process count, or a count without a coordinator, is an error that names
+    the missing flags."""
+    from eskf_lio_torch.parallel import distributed as dist
+
+    for name in (dist.ENV_COORDINATOR, dist.ENV_NUM_PROCESSES, dist.ENV_PROCESS_ID):
+        monkeypatch.delenv(name, raising=False)
+    argv = [*SYNTH, "--device", "cpu", "--max-scans", "4", *flags]
+    if flags[0] == "--devices":
+        assert t_cli.main(argv) == 0
+        out = capsys.readouterr().out
+        for line in ("step average elapsed time = ", "step max elapsed time = ",
+                     "throughput = ", "map voxels = "):
+            assert line in out
+        assert "distributed:" not in out
+        return
     with pytest.raises(SystemExit) as exc:
-        t_cli.main([*SYNTH, "--device", "cpu", *flags])
+        t_cli.main(argv)
     assert exc.value.code != 0
-    assert "ROADMAP.md queue 1 item 15" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--coordinator" in err and "--num-processes" in err and "--process-id" in err
+    assert "not ported" not in err and "ROADMAP" not in err
+    assert not dist.is_initialized()
+
+
+def test_cli_sharded_run_reports_as_the_jax_cli(tmp_path):
+    """`--devices 2 --device cpu` in a process of its own: the JAX CLI's
+    report lines, a PCD with one point per distinct voxel, one pose a scan;
+    `--stream` ignores `--devices`, as the JAX CLI does."""
+    out_pcd, out_traj = str(tmp_path / "m.pcd"), str(tmp_path / "t.json")
+    proc = run_cli(*SYNTH, "--devices", "2", "--device", "cpu", "--cloud-out", out_pcd,
+                   "--traj-out", out_traj)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    for line in ("step average elapsed time = ", "step max elapsed time = ",
+                 "throughput = ", "map voxels = ", f"saved {out_pcd}", f"saved {out_traj}"):
+        assert line in proc.stdout
+    assert len(export.read_trajectory_json(out_traj)[0]) == 14
+    assert pcd_points(out_pcd) == len(export.read_pcd(out_pcd)) > 1000
+
+    proc = run_cli(*SYNTH, "--devices", "2", "--device", "cpu", "--stream")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert "scans/s (streaming, threaded ingest)" in proc.stdout
+
+    help_text = run_cli("--help").stdout
+    assert "not ported" not in help_text and "--stream and --replay" in help_text
+
+
+def test_cli_sharded_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device works")
+    proc = run_cli(*SYNTH, "--devices", "2")
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr and "throughput" not in proc.stdout
 
 
 def test_cli_sync_checkpoint_and_resume_in_process(tmp_path, capsys):

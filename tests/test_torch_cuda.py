@@ -1,7 +1,8 @@
 """The port on the card: both CUDA kernels against their plain versions,
 the replay through the kernels against the replay on the CPU, the voxel
 map's `insert` through kernel B (the same bits twice; the CPU's words), and
-the streaming driver's launch counts.
+the streaming driver's launch counts, and the sharded driver (both kernels
+at a shard's slice shapes; four shards on the one card, twice, bit for bit).
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -66,7 +67,8 @@ def gn_rel_err(args, a, b):
     return (diff / scale.clamp(min=1e-30)).max().item()
 
 
-@pytest.mark.parametrize("n", [1, 127, 129, 255, 1000, 16384, 100000])
+# 8,192 rows: a shard's GN slice at D = 4 (`slice_capacity(16384, 4, 2.0)`)
+@pytest.mark.parametrize("n", [1, 127, 129, 255, 1000, 8192, 16384, 100000])
 def test_gn_kernel_matches_plain(dev, n):
     args = gn_args(n, n, dev)
     before = gn.KERNEL.launches
@@ -124,7 +126,9 @@ def seg_inputs(n, n_keys, dev, seed=3, w=10):
 
 
 @pytest.mark.parametrize(
-    "n,n_keys", [(131072, 12000), (131072, 1), (131072, 131072 * 8), (1000, 90), (257, 3), (1, 1)]
+    # (16384, 2500): a shard's insert slice at D = 4, W = 10
+    "n,n_keys", [(131072, 12000), (131072, 1), (131072, 131072 * 8), (16384, 2500), (1000, 90),
+                 (257, 3), (1, 1)]
 )
 def test_segscan_kernel_matches_plain(dev, n, n_keys):
     keys, vals = seg_inputs(n, n_keys, dev)
@@ -282,3 +286,54 @@ def test_two_scan_odometry_launch_counts(dev):
     assert segscan.KERNEL.launches - b0 == 4
     assert gn.KERNEL.launches - a0 == int(odo.diags[0]["icp_iterations"]) > 0
     assert odo.device_reads == 1 and np.isfinite(odo.positions).all()
+
+
+def test_gn_kernel_takes_the_slices_of_a_stacked_scan(dev):
+    """`align` hands kernel A row blocks of [L, S, ...] tensors: views at a
+    non-zero offset give the bits of their own copies."""
+    n_local, s = 4, 8192
+    pts, covs, R, mu, covm, mask = gn_args(n_local * s, 21, dev)
+    stacked = [x.reshape(n_local, s, *x.shape[1:]) for x in (pts, covs, mu, covm, mask)]
+    for i in range(n_local):
+        p, c, m, cm, k = (x[i] for x in stacked)
+        a = gn.normal_equations_rotated(p, c, R, m, cm, k)
+        b = gn.normal_equations_rotated(p.clone(), c.clone(), R, m.clone(), cm.clone(), k.clone())
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert gn_rel_err((p, c, R, m, cm, k), a,
+                          gn.normal_equations_rotated_ref(p, c, R, m, cm, k)) <= TOL
+
+
+def test_sharded_run_on_the_card_twice_equal_bits(dev):
+    """Four shards on the one card: kernel A once per shard per GN
+    iteration, kernel B once in the downsampler and once per shard in
+    `insert`, every scan; two runs equal bit for bit; 2e-2 m from the
+    single-device driver (the same sums in another order)."""
+    from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
+
+    cfg = Config(
+        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), translation_noise=1e-4,
+        rotation_noise=3e-5, max_raw_points=8192, max_scan_points=4096,
+        max_imu_per_scan=48, hash_capacity_log2=16,
+    )
+    seq = dataset.make_synthetic_sequence(duration=1.0, points_per_scan=8000, seed=7)
+    runs = []
+    for _ in range(2):
+        odo = ShardedOdometry(cfg, n_devices=4)  # the default device is the card
+        assert odo.device.type == "cuda" and len(odo.voxmap.blocks) == 4
+        a0, b0 = gn.KERNEL.launches, segscan.KERNEL.launches
+        summary = odo.run(seq, max_scans=6)
+        assert summary["num_scans"] == 6 and not summary["diverged"]
+        iters = sum(int(d["icp_iterations"]) for d in odo.diags)
+        assert gn.KERNEL.launches - a0 == 4 * iters > 0
+        assert segscan.KERNEL.launches - b0 == (1 + 4) * 6
+        assert sum(int(d["gn_slice_overflow"]) + int(d["insert_slice_overflow"])
+                   for d in odo.diags) == 0
+        runs.append(odo)
+    first, again = runs
+    assert np.array_equal(first.positions, again.positions)
+    assert np.array_equal(np.stack(first.trajectory_R), np.stack(again.trajectory_R))
+    for name, x, y in zip(vm.VoxelMap._fields, first.voxmap, again.voxmap):
+        assert torch.equal(x, y), name
+    single = Odometry(cfg)
+    single.run(seq, max_scans=6)
+    np.testing.assert_allclose(first.positions, single.positions, atol=2e-2)

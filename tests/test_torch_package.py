@@ -1,7 +1,8 @@
 """Guards of the PyTorch port's rules.
 
-* The port (`eskf_lio_torch/**`) and `chip_smoke.py` import neither JAX
-  nor the JAX package (an AST scan of every import).
+* The port (`eskf_lio_torch/**`, `parallel/` included), `chip_smoke.py` and
+  the two-process tests' worker script import neither JAX nor the JAX
+  package (an AST scan of every import).
 * The port's copy of the config has the JAX `Config`'s fields and
   defaults, and loads the shipped YAML the same way.
 * Without CUDA an entry point called without `device="cpu"` raises; it
@@ -30,7 +31,9 @@ from eskf_lio_tpu import config as j_config
 torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "eskf_lio_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "eskf_lio_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py",
+]
 FORBIDDEN = ("jax", "jaxlib", "eskf_lio_tpu")
 
 
@@ -49,6 +52,16 @@ def imported_modules(path: Path):
 def test_port_imports_no_jax(path):
     bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scan_covers_the_parallel_package_and_it_ships():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"eskf_lio_torch/parallel/__init__.py", "eskf_lio_torch/parallel/sharded_map.py",
+            "eskf_lio_torch/parallel/distributed.py", "tests/_torch_dist_worker.py"} <= names
+    # every directory of the package is a package, and the build takes them all
+    for path in (ROOT / "eskf_lio_torch").rglob("*.py"):
+        assert (path.parent / "__init__.py").exists(), path
+    assert 'include = ["eskf_lio_tpu*", "eskf_lio_torch*"]' in (ROOT / "pyproject.toml").read_text()
 
 
 def test_port_has_both_kernel_sources():
@@ -78,6 +91,7 @@ def _entry_points():
     from eskf_lio_torch.io import dataset
     from eskf_lio_torch.map import voxel_map
     from eskf_lio_torch.models import eskf
+    from eskf_lio_torch.parallel import distributed, sharded_map
     from eskf_lio_torch.pipeline import odometry, replay, stream
 
     cfg = t_config.Config(max_raw_points=256, max_scan_points=128, hash_capacity_log2=10)
@@ -90,13 +104,18 @@ def _entry_points():
         "init_state": lambda **kw: eskf.init_state(cfg, **kw),
         "Odometry": lambda **kw: odometry.Odometry(cfg, **kw),
         "StreamingRunner": lambda **kw: stream.StreamingRunner(cfg, **kw),
+        "ShardedOdometry": lambda **kw: sharded_map.ShardedOdometry(cfg, n_devices=2, **kw),
+        "ShardMesh.create": lambda **kw: distributed.ShardMesh.create(2, **kw),
+        "make_sharded_scan_step": lambda **kw: sharded_map.make_sharded_scan_step(
+            cfg, distributed.ShardMesh.create(2, **kw)),
     }
 
 
 @pytest.mark.parametrize(
     "name",
     ["run_replay", "make_replay_step", "make_init_step", "VoxelMap.create", "init_state",
-     "Odometry", "StreamingRunner"],
+     "Odometry", "StreamingRunner", "ShardedOdometry", "ShardMesh.create",
+     "make_sharded_scan_step"],
 )
 def test_entry_points_default_to_cuda_and_refuse_without_it(name):
     if torch.cuda.is_available():
@@ -134,6 +153,7 @@ def test_live_path_imports_no_matplotlib():
     code = (
         "import sys\n"
         "import eskf_lio_torch.cli, eskf_lio_torch.pipeline.stream\n"
+        "import eskf_lio_torch.parallel.sharded_map, eskf_lio_torch.parallel.distributed\n"
         "import eskf_lio_torch.utils.checkpoint, eskf_lio_torch.utils.profiling\n"
         "import eskf_lio_torch.io.export, eskf_lio_torch.io.rosbag2\n"
         "import eskf_lio_torch.viz.live, eskf_lio_torch.viz.visualize\n"
