@@ -19,24 +19,37 @@
    function.  Beside kernel A's time it prints the duration of an empty
    <<<1,32>>> kernel, the least any launch takes; and it times kernel B
    against `index_add_` at the shape of `voxel_map.insert`'s per-voxel sums.
-3. End to end: drives the port's replay (`pack_sequence`, `make_init_step`,
-   `make_replay_step`) at the HEAVY size of `bench.py` (131,072 raw points,
-   32,768 scan points, 16,384 align points, a 2^19-row voxel map) on the
-   bench's synthetic sequence cut to 40 scans, with the launch counters set
-   to 0 just before and read just after; checks finite poses, convergence,
-   ATE against ground truth, and that the kernels were launched exactly as
-   often as the path needs.
+3. The captured step.  `control_flow`: the conditional graph nodes
+   (`csrc/graph_cond.cu` through `utils/graphs.py`: an if/else around a
+   sort, a WHILE loop holding an IF) against Python control flow on the same
+   inputs, replay after replay; exact equality.
+   End to end: drives the port's replay (`pack_sequence`, `make_init_step`,
+   `make_replay_step`, on the card the captured step) at the HEAVY size of
+   `bench.py` (131,072 raw points, 32,768 scan points, 16,384 align points, a
+   2^19-row voxel map) on the bench's synthetic sequence cut to 40 scans,
+   with the launch counters set to 0 just before and read just after (the
+   launches inside a graph are counted on the device); checks finite poses,
+   convergence, ATE against ground truth, that the kernels were launched
+   exactly as often as the path needs, and that the warm half's rows waited
+   for the device 0 times (torch's sync debug mode, by calling line).
+   `profile`: the eager step (`make_step_core`) over the same rows, its last
+   five under torch.profiler (busy time, launches, stages).  `graph`: the
+   eager step and a second graph run beside the first: scans/s of both,
+   device time a scan of the graph path between CUDA events, capture
+   seconds, node count and peak memory; all three runs equal bit for bit.
 4. Live path: at the same size and on the same 40 scans, with
    `remove_period` cut to 2.0 s and `remove_distance_threshold` to 15 m so
    that an eviction fires inside the step (the synthetic room is 20 m wide:
    nothing lies beyond the default 100 m),
    `stream`: the scan-at-a-time `Odometry.run` and the threaded
-   `StreamingRunner.run(merged_stream(seq))`, launch counters zeroed before
-   and read after each; both must track ground truth, must have fed the step
-   bitwise-equal inputs, and the synchronous driver run twice must give the
-   same bits (trajectory and every word of the map; the second, digested pair
-   of runs stops after 24 scans, past the eviction).  Prints scans/s,
-   host-to-device bytes and device syncs per scan, and which ingest path ran.
+   `StreamingRunner.run(merged_stream(seq))` (both on the captured step),
+   launch counters zeroed before and read after each; both must track ground
+   truth, must have fed the step bitwise-equal inputs, and the synchronous
+   driver run twice, and once with `make_step_core` run eagerly in place of
+   the captured step, must give the same bits (trajectory and every word of
+   the map; these runs stop after 24 scans, past the eviction).  Prints
+   scans/s, host-to-device bytes and device syncs per scan (at most 2 on the
+   captured step), and which ingest path ran.
    `resume`: 20 scans, `save_checkpoint`, `load_checkpoint` into a fresh
    driver, 19 more: equal bit for bit to the straight run.
    `cli`: `eskf_lio_torch.cli.main` in process on a HEAVY YAML, 2 s of the
@@ -529,7 +542,75 @@ def kernel_b_phase(dev, config, scan_points) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path end to end
+# phase 3: the captured step's control flow, and the main path end to end
+# ---------------------------------------------------------------------------
+
+
+def control_flow_phase(dev) -> dict:
+    """The conditional nodes (`csrc/graph_cond.cu`, through
+    `utils/graphs.py`) against Python control flow on the same inputs: an
+    if/else (IF nodes on a predicate and on its negation) around a sort,
+    then a WHILE loop holding an IF, for both values of the predicate and
+    several trip counts, replay after replay of one capture; exact
+    equality.  Times a replay with the loop at 0 and at 10 passes."""
+    import torch
+
+    from eskf_lio_torch.utils import graphs
+
+    n = 1 << 16
+    x = torch.zeros(n, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    stop = torch.zeros((), dtype=torch.int64, device=dev)
+    out = (torch.zeros(n, device=dev), torch.zeros((), dtype=torch.int64, device=dev))
+
+    def body(c):
+        _, k, z = c
+        z = graphs.device_if(k % 3 == 0, lambda: (z * 0.5,), (z,))[0]
+        return k + 1 < stop, k + 1, z * 1.01 + 1
+
+    def step():
+        y, m = graphs.device_if(flag, lambda: (torch.sort(x, descending=True)[0], stop * 2),
+                                out, otherwise=lambda: (x + 1, stop))
+        carry = (stop > 0, torch.zeros((), dtype=torch.int64, device=dev), y)
+        _, k, z = graphs.device_while(body, carry, 100)
+        out[0].copy_(z)
+        out[1].copy_(k + m)
+
+    def plain(f, s):
+        y = torch.sort(x, descending=True)[0] if f else x + 1
+        m = 2 * s if f else s
+        for k in range(s):
+            if k % 3 == 0:
+                y = y * 0.5
+            y = y * 1.01 + 1
+        return y, s + m
+
+    graph = graphs.StepGraph(step, dev, segscan_rows=0)
+    cases = ((True, 3), (False, 0), (True, 17), (False, 5), (True, 0), (False, 1))
+    for f, s in cases:
+        x.copy_(torch.randn(n, device=dev))
+        flag.fill_(f)
+        stop.fill_(s)
+        want = plain(f, s)
+        graph()
+        torch.cuda.synchronize()
+        check(torch.equal(out[0], want[0]) and int(out[1]) == want[1],
+              f"captured control flow differs from Python's (flag {f}, {s} passes)")
+    times = {}
+    for s in (0, 10):
+        stop.fill_(s)
+        times[f"replay_ms_{s}_passes"] = event_ms(graph, iters=20, warmup=2, batches=3)
+    res = dict(cases=len(cases), capture_s=graph.capture_s, nodes=graph.nodes,
+               cuda_runtime=graphs.GRAPH_COND.lib().graph_cond_runtime_version(),
+               # why the nodes are made through the CUDA runtime
+               torch_has_if_node_call=hasattr(torch.cuda.CUDAGraph, "begin_capture_to_if_node"),
+               **times)
+    print("control_flow " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# the main path end to end
 # ---------------------------------------------------------------------------
 
 
@@ -562,9 +643,9 @@ def bench_sequence(n_scans: int):
     )
 
 
-def start_replay(dev, config, init_scan):
+def start_replay(dev, config, init_scan, graphed: bool = True):
     """The user's entry points: the filter state, the map with the first
-    scan inserted, and the replay runner."""
+    scan inserted, and the replay runner (None when not `graphed`)."""
     import torch
 
     from eskf_lio_torch.map import voxel_map as vm
@@ -573,7 +654,7 @@ def start_replay(dev, config, init_scan):
     from eskf_lio_torch.pipeline import replay
 
     init_step = odo.make_init_step(config, dev)
-    step = replay.make_replay_step(config, dev)
+    step = replay.make_replay_step(config, dev) if graphed else None
     state = eskf.init_state(config, dev)
     voxmap = vm.VoxelMap.create(config.hash_capacity, config.map_delta_capacity, device=dev)
     voxmap, _ = init_step(voxmap, init_scan)
@@ -592,7 +673,32 @@ def run_rows(step, carry, packed, rows: slice):
     return carry, Rs, ts, diags
 
 
+def sync_sites(caught, n: int) -> dict:
+    """torch's sync debug mode warns at each call that waits for the device
+    (a blocking upload included): the warnings by calling line, per scan."""
+    sites: dict = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return {k: v / n for k, v in sorted(sites.items(), key=lambda kv: -kv[1])}
+
+
+def graph_info(step) -> dict:
+    """Capture seconds and node counts of a graphed replay's steps (the
+    update graphs that were captured, and the predict-only graph if any)."""
+    graphs_ = {f"update{'_evict' if e else ''}": g for e, g in step.scan_step.graphs.items()}
+    graphs_["predict_only"] = step.predict.graph
+    return {name: {"capture_s": g.capture_s, "nodes": g.nodes}
+            for name, g in graphs_.items() if g.graph is not None}
+
+
 def e2e_phase(dev, config, seq, packed, kernels) -> dict:
+    """The replay on the graph path (the default on the card): each row
+    replays the captured step, with the launch counters zeroed before the
+    run and read after it (kernel launches inside the graphs are counted
+    on the device), and the device syncs of the rows counted by line (of
+    the warm half: the first half holds the capture)."""
     import numpy as np
     import torch
 
@@ -607,18 +713,20 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
     torch.cuda.reset_peak_memory_stats(dev)
 
     for k in kernels:
-        k.launches = 0
+        k.reset_launches()
     t0 = time.perf_counter()
     step, carry = start_replay(dev, config, init_scan)
-    outs = []
-    for rows in (slice(0, half), slice(half, b_total)):
-        torch.cuda.synchronize()
-        t_start = time.perf_counter()
-        carry, Rs, ts, diags = run_rows(step, carry, packed, rows)
-        torch.cuda.synchronize()
-        outs.append((Rs, ts, diags, time.perf_counter() - t_start))
+    outs, caught = [], {}
+    for part, rows in (("first", slice(0, half)), ("warm", slice(half, b_total))):
+        with warnings.catch_warnings(record=True) as caught[part], sync_debug("warn"):
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+            carry, Rs, ts, diags = run_rows(step, carry, packed, rows)
+            torch.cuda.synchronize()
+            outs.append((Rs, ts, diags, time.perf_counter() - t_start))
     wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in kernels}
+    launches = {k.name: k.launch_count() for k in kernels}
 
     positions, _, diags = replay.collect(
         updates, [o[0] for o in outs], [o[1] for o in outs], [o[2] for o in outs]
@@ -630,13 +738,19 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
     conv = float(np.mean(diags["icp_converged"]))
     iters = diags["icp_iterations"]
     res = dict(
-        scans=len(positions), update_rows=n_upd, scans_per_s=scans_per_s,
+        path="graph", scans=len(positions), update_rows=n_upd, scans_per_s=scans_per_s,
         warm_rows=b_total - half, ate_cm=ate_cm, convergence=conv,
-        mean_icp_iterations=float(np.mean(iters)), wall_s=wall,
-        peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+        mean_icp_iterations=float(np.mean(iters)), gn_iterations=int(np.sum(iters)),
+        wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
         map_voxels=int(carry[1].num_voxels()), launches=launches,
         max_align_slice_overflow=int(np.max(diags["align_slice_overflow"])),
         dropped_points=int(np.sum(diags["dropped_points"])),
+        graphs=graph_info(step),
+        # the warm half's rows; the first half's hold the capture's own
+        # synchronisations (before and after it), once a run
+        device_syncs_in_rows_per_scan=sum(sync_sites(caught["warm"], warm_updates).values()),
+        sync_sites_in_rows_per_scan=sync_sites(caught["warm"], warm_updates),
+        sync_sites_first_half=sync_sites(caught["first"], 1),
     )
     print("e2e " + json.dumps(res))
     check(bool(np.isfinite(positions).all()) and bool(diags["pose_finite"].all()),
@@ -648,6 +762,10 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
     # the downsampler and `insert`, on every update scan and on the init scan
     check(launches["segscan"] == 2 * n_upd + 2,
           f"kernel B launches {launches['segscan']} != 2 x update scans + 2 = {2 * n_upd + 2}")
+    check(res["device_syncs_in_rows_per_scan"] == 0,
+          f"the replay's rows waited for the device: {res['sync_sites_in_rows_per_scan']}")
+    res["_trajectory"] = (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
+    res["_map"] = vm.VoxelMap(*(x.clone() for x in carry[1]))
 
     # eviction at full size on the final map (the 4 s run ends before the
     # first 10 s eviction period): fold, then drop voxels beyond 5 m
@@ -662,6 +780,30 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
     check(0 < int(removed) < before and after == before - int(removed),
           "eviction at full size did not remove a consistent voxel count")
     return res
+
+
+def eager_rows(core, carry, packed, rows: slice):
+    """Rows of the packed sequence through `make_step_core` run eagerly on
+    the card (the bench sequence has update rows only); (carry, Rs, ts)."""
+    from eskf_lio_torch.types import ImuChunk, Scan
+
+    _, chunks, scans, evicts, updates, _ = packed
+    Rs, ts = [], []
+    for b in range(rows.start, rows.stop):
+        check(bool(updates[b]), f"row {b} of the bench sequence is predict-only")
+        carry, _ = core(carry, (ImuChunk(*(x[b] for x in chunks)),
+                                Scan(*(x[b] for x in scans)), bool(evicts[b])))
+        Rs.append(carry[2])
+        ts.append(carry[3])
+    return carry, Rs, ts
+
+
+def eager_start(dev, config, init_scan):
+    """The eager step and the carry after the init scan."""
+    from eskf_lio_torch.pipeline import odometry as odo
+
+    _, carry = start_replay(dev, config, init_scan, graphed=False)
+    return odo.make_step_core(config, dev), carry
 
 
 STAGES = ("predict", "preprocess", "align", "pose_update", "map_insert", "evict")
@@ -725,21 +867,101 @@ def trace_scans(run_scans, n: int, scan_ms: float) -> dict:
     )
 
 
-def profile_phase(dev, config, packed, scan_ms: float, n_prof: int = 5) -> dict:
-    """Where the time goes: a fresh replay of the same sequence with the
-    last `n_prof` rows under torch.profiler."""
+def profile_phase(dev, config, packed, n_prof: int = 5) -> dict:
+    """Where the eager step's time goes: `make_step_core` run eagerly over
+    the sequence, its last `n_prof` rows under torch.profiler (the device
+    records of a graph's conditional bodies come back incomplete, so the
+    graph path is timed with CUDA events instead: `graph_phase`)."""
     import numpy as np
     import torch
 
     b_total = packed[1].dt.shape[0]
-    step, carry = start_replay(dev, config, packed[0])
-    carry, *_ = run_rows(step, carry, packed, slice(0, b_total - n_prof))
+    core, carry = eager_start(dev, config, packed[0])
+    carry, *_ = eager_rows(core, carry, packed, slice(0, b_total - n_prof))
     torch.cuda.synchronize()
     n = int(np.asarray(packed[4][b_total - n_prof:]).sum())
+    t0 = time.perf_counter()
+    eager_rows(core, carry, packed, slice(b_total - n_prof, b_total))
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3 / n
     res = trace_scans(
-        lambda: run_rows(step, carry, packed, slice(b_total - n_prof, b_total)), n, scan_ms
+        lambda: eager_rows(core, carry, packed, slice(b_total - n_prof, b_total)), n, scan_ms
     )
+    res["path"] = "eager"
     print("profile " + json.dumps(res))
+    return res
+
+
+def graph_phase(dev, config, packed, e2e: dict, eager_busy_ms: float) -> dict:
+    """The eager step and the graph step side by side on the same rows:
+    `make_step_core` eagerly over the whole sequence (scans/s of its warm
+    half), then a second graph run row by row, each row between CUDA events
+    (device time a scan: the events' span, which holds the row's few input
+    and output copies besides the graph); both must give the first graph
+    run's trajectory and map bit for bit."""
+    import numpy as np
+    import torch
+
+    from eskf_lio_torch.pipeline import replay
+
+    b_total = packed[1].dt.shape[0]
+    half = b_total // 2
+    ref_Rs, ref_ts = e2e["_trajectory"]
+    ref_map = e2e["_map"]
+
+    core, carry = eager_start(dev, config, packed[0])
+    carry, Rs_a, ts_a = eager_rows(core, carry, packed, slice(0, half))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, Rs_b, ts_b = eager_rows(core, carry, packed, slice(half, b_total))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    eager_equal = (
+        torch.equal(torch.stack(Rs_a + Rs_b), ref_Rs) and torch.equal(torch.stack(ts_a + ts_b), ref_ts)
+        and maps_bit_equal(carry[1], ref_map)
+    )
+    apart_m = float((torch.stack(ts_a + ts_b) - ref_ts).norm(dim=1).max())
+    del carry
+
+    step, carry = start_replay(dev, config, packed[0])
+    spans, walls, Rs, ts = [], [], [], []
+    for b in range(b_total):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_row = time.perf_counter()
+        start.record()
+        carry, R, t, _ = run_rows(step, carry, packed, slice(b, b + 1))
+        end.record()
+        end.synchronize()
+        walls.append(time.perf_counter() - t_row)
+        spans.append(start.elapsed_time(end))
+        Rs.append(R)
+        ts.append(t)
+    again_equal = (torch.equal(torch.cat(Rs), ref_Rs) and torch.equal(torch.cat(ts), ref_ts)
+                   and maps_bit_equal(carry[1], ref_map))
+    warm = slice(half, b_total)
+    graph_ms = float(np.mean(spans[warm]))
+    res = dict(
+        rows=b_total, warm_rows=b_total - half,
+        eager_scans_per_s=(b_total - half) / eager_s,
+        graph_scans_per_s=e2e["scans_per_s"],
+        graph_device_ms_per_scan=graph_ms,
+        graph_wall_ms_per_scan_row_by_row=1e3 * float(np.mean(walls[warm])),
+        graph_idle_share_row_by_row=1.0 - graph_ms / (1e3 * float(np.mean(walls[warm]))),
+        # the e2e phase's warm half enqueues its rows back to back: its wall
+        # time a scan bounds the device time from above
+        graph_wall_ms_per_scan_back_to_back=1e3 / e2e["scans_per_s"],
+        eager_busy_ms_per_scan=eager_busy_ms,
+        graphs=graph_info(step), peak_mem_gib=e2e["peak_mem_gib"],
+        eager_equals_graph_bitwise=eager_equal, eager_vs_graph_max_m=apart_m,
+        second_graph_run_bit_equal=again_equal,
+        device_syncs_in_rows_per_scan=e2e["device_syncs_in_rows_per_scan"],
+        launches=e2e["launches"], gn_iterations=e2e["gn_iterations"],
+        update_rows=e2e["update_rows"],
+    )
+    print("graph " + json.dumps(res))
+    check(again_equal, "two graph runs of the replay differ in their bits")
+    check(eager_equal, f"the eager step and the graph step differ (max {apart_m:.3e} m)")
     return res
 
 
@@ -752,6 +974,23 @@ STREAM_REMOVE_DISTANCE_M = 15.0
 # the digested reruns of the stream phase stop here: past the eviction of
 # update scan 20, short of the whole sequence
 RERUN_SCANS = 24
+# the graphed driver's waits for the device: its read-back of the pose, and
+# the init scan's fold flag and the summary's voxel count once a run
+MAX_STREAM_SYNCS_PER_SCAN = 2.0
+
+
+def eager_scan_step(config, dev):
+    """`make_step_core` run eagerly, with the scan step's signature."""
+    from eskf_lio_torch.pipeline import odometry as odo
+
+    core = odo.make_step_core(config, dev)
+
+    def scan_step(state, voxmap, prev_R, prev_t, chunk, scan, do_evict):
+        (state, voxmap, R, t), diag = core((state, voxmap, prev_R, prev_t),
+                                           (chunk, scan, do_evict))
+        return state, voxmap, R, t, diag
+
+    return scan_step
 
 
 def stream_config():
@@ -831,17 +1070,18 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(
     def on_scan(o):
         stamps.append(time.perf_counter())
         if len(o.trajectory_t) in keep_map_at:
-            kept[len(o.trajectory_t)] = o.voxmap  # the step builds new tensors, never in place
+            # a graphed step writes its map in place: keep a copy
+            kept[len(o.trajectory_t)] = type(o.voxmap)(*(x.clone() for x in o.voxmap))
 
     for k in kernels:
-        k.launches = 0
+        k.reset_launches()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught, \
             sync_debug("warn" if count_syncs else "default"):
         warnings.simplefilter("always")
         summary = run(on_scan)
         torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in kernels}
+    launches = {k.name: k.launch_count() for k in kernels}
 
     diags = odo.diags
     n_upd = len(diags)
@@ -867,18 +1107,8 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(
                 else ("align_slice_overflow",)):
         res[f"max_{key}"] = int(max(int(d[key]) for d in diags))
     if count_syncs:
-        # torch's sync debug mode warns at each call that waits for the
-        # device, a blocking upload included; by calling line, per scan
-        n = summary["num_scans"]
-        sites: dict = {}
-        for w in caught:
-            if "synchroniz" in str(w.message):
-                site = f"{Path(w.filename).name}:{w.lineno}"
-                sites[site] = sites.get(site, 0) + 1
-        res["device_syncs_per_scan"] = sum(sites.values()) / n
-        res["sync_sites_per_scan"] = {
-            k: v / n for k, v in sorted(sites.items(), key=lambda kv: -kv[1])
-        }
+        res["sync_sites_per_scan"] = sync_sites(caught, summary["num_scans"])
+        res["device_syncs_per_scan"] = sum(res["sync_sites_per_scan"].values())
     check(bool(np.isfinite(positions).all()) and all(bool(d["pose_finite"]) for d in diags),
           "non-finite pose in a streaming run")
     check(not summary["diverged"], "a streaming run diverged")
@@ -918,11 +1148,22 @@ def stream_phase(seq, kernels, replay_scans_per_s: float):
     runner2, digests_b = StreamingRunner(config), []
     res_b2, _ = drive(lambda cb: runner2.run(merged_stream(seq), max_scans=m, on_scan=cb),
                       runner2.odo, kernels, seq, digests=digests_b)
-    same_bits = (
-        np.array_equal(np.stack(sync.trajectory_p[:m]), np.stack(again.trajectory_p))
-        and np.array_equal(np.stack(sync.trajectory_R[:m]), np.stack(again.trajectory_R))
-        and maps_bit_equal(maps[m], again.voxmap)
-    )
+    # the same driver with `make_step_core` run eagerly in place of the
+    # captured step: the graph path's bits, and the device syncs the eager
+    # step makes (its GN loop and insert read their decisions)
+    eager = Odometry(config)
+    eager.scan_step = eager_scan_step(config, eager.device)
+    res_e, _ = drive(lambda cb: eager.run(seq, max_scans=m, on_scan=cb), eager, kernels, seq,
+                     count_syncs=True)
+
+    def same_run(other):
+        return (
+            np.array_equal(np.stack(sync.trajectory_p[:m]), np.stack(other.trajectory_p))
+            and np.array_equal(np.stack(sync.trajectory_R[:m]), np.stack(other.trajectory_R))
+            and maps_bit_equal(maps[m], other.voxmap)
+        )
+
+    same_bits, eager_bits = same_run(again), same_run(eager)
 
     res = dict(
         config=f"HEAVY with remove_period {STREAM_REMOVE_PERIOD_S} s and "
@@ -937,6 +1178,10 @@ def stream_phase(seq, kernels, replay_scans_per_s: float):
                               "threaded": res_b2["scans_per_s"]},
         device_syncs_per_scan=res_a2["device_syncs_per_scan"],
         sync_sites_per_scan=res_a2["sync_sites_per_scan"],
+        eager_step=dict(scans_per_s=res_e["scans_per_s"], avg_step_ms=res_e["avg_step_ms"],
+                        device_syncs_per_scan=res_e["device_syncs_per_scan"],
+                        sync_sites_per_scan=res_e["sync_sites_per_scan"],
+                        launches=res_e["launches"], bit_equal_to_graph=eager_bits),
         synchronous_twice_bit_equal=same_bits,
         step_inputs_bit_equal=digests_a == digests_b,
     )
@@ -948,6 +1193,10 @@ def stream_phase(seq, kernels, replay_scans_per_s: float):
     check(all(bool(r["evictions"]) for r in (res_a, res_b, res_a2, res_b2)),
           "no eviction removed a voxel inside the step")
     check(same_bits, "two runs of the synchronous driver differ in their bits")
+    check(eager_bits, "the eager step and the graph step of the driver differ in their bits")
+    check(res_a2["device_syncs_per_scan"] <= MAX_STREAM_SYNCS_PER_SCAN,
+          f"the graphed driver waited for the device {res_a2['device_syncs_per_scan']:.2f} "
+          f"times a scan (at most {MAX_STREAM_SYNCS_PER_SCAN})")
     launches = {"stream_synchronous": res_a["launches"], "stream_threaded": res_b["launches"]}
     return sync, maps[n - 1], launches
 
@@ -1034,7 +1283,7 @@ def cli_phase(kernels) -> dict:
             f.write(HEAVY_YAML)
         check(load_config(cfg) == heavy_config(), "the CLI phase's YAML is not HEAVY")
         for k in kernels:
-            k.launches = 0
+            k.reset_launches()
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -1056,7 +1305,7 @@ def cli_phase(kernels) -> dict:
         res = dict(
             wall_s=wall, map_voxels=voxels, pcd_points=points, poses=poses,
             checkpoint_files=sorted(os.listdir(ckpt)),
-            launches={k.name: k.launches for k in kernels},
+            launches={k.name: k.launch_count() for k in kernels},
         )
         print("cli " + json.dumps(res))
         check(points == voxels > 1000, f"PCD POINTS {points} != map voxels {voxels}")
@@ -1459,17 +1708,20 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from eskf_lio_torch.ops import _cuda, gn_normal_eq, segscan
+    from eskf_lio_torch.utils import graphs
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
+    # the two ported kernels, whose launches the paths count, and the
+    # conditional nodes of the captured step
     kernels = [gn_normal_eq.KERNEL, segscan.KERNEL]
     t0 = time.perf_counter()
-    secs = _cuda.build(kernels)
+    secs = _cuda.build(kernels + [graphs.GRAPH_COND])
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"(parallel wall {time.perf_counter() - t0:.2f} s)")
-    for k in kernels:
+    for k in kernels + [graphs.GRAPH_COND]:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.name}: {line.strip()}")
@@ -1491,9 +1743,11 @@ def main() -> int:
         if "--kernels-only" in sys.argv[1:]:
             print("chip_smoke: --kernels-only, stopping before the replay (no result line)")
             return 0
+        control = control_flow_phase(dev)
         packed = replay.pack_sequence(config, seq, device=dev)
         e2e = e2e_phase(dev, config, seq, packed, kernels)
-        profile_phase(dev, config, packed, 1e3 / e2e["scans_per_s"])
+        prof = profile_phase(dev, config, packed)
+        graph = graph_phase(dev, config, packed, e2e, prof["busy_ms_per_scan"])
         del packed
         by_path = {"replay": e2e["launches"]}
         straight, straight_map, launches = stream_phase(seq, kernels, e2e["scans_per_s"])
@@ -1540,6 +1794,15 @@ def main() -> int:
                          "call_ms": res_b["insert_shape_call_ms"],
                          "bound_ms": res_b["insert_shape_bound_ms"],
                          "index_add_ms": res_b["insert_shape_index_add_ms"]},
+        # the captured step (not a ported kernel: the conditional nodes of
+        # csrc/graph_cond.cu against Python control flow, and the replay's
+        # graph path beside the eager step)
+        "control_flow": control,
+        "graph_step": {k: graph[k] for k in (
+            "graph_scans_per_s", "eager_scans_per_s", "graph_device_ms_per_scan",
+            "graph_wall_ms_per_scan_back_to_back", "eager_busy_ms_per_scan",
+            "graph_idle_share_row_by_row", "graphs", "peak_mem_gib",
+            "device_syncs_in_rows_per_scan")},
     }
     print(json.dumps(line))
     print(smi)

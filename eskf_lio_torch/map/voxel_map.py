@@ -19,7 +19,10 @@ Translation notes: JAX's out-of-range scatter indices are dropped
 (`mode="drop"`); here such rows go to one extra dump row that is sliced
 off.  Every gather index is in range by construction (bucket ids are below
 the bucket count; searchsorted results are clamped).  The fold/append
-`lax.cond` is a host branch on one scalar.  `jax.ops.segment_sum` over the
+`lax.cond` (`eskf_lio_tpu/map/voxel_map.py:615`) is `utils.graphs.device_if`:
+inside a captured step two IF nodes that write the map's own buffers in
+place (the fold the main tier too, the append the delta tier only), eagerly
+one host read.  `jax.ops.segment_sum` over the
 key-sorted batch is `ops.segscan.segsum_sorted` (kernel B on the card, no
 float atomics), so the same batch gives the same map bit for bit, run after
 run; payloads agree with the JAX package to f32 rounding, integer words
@@ -36,6 +39,7 @@ from eskf_lio_torch import device as device_policy
 from eskf_lio_torch.ops import segscan
 from eskf_lio_torch.ops import sortmerge as sm
 from eskf_lio_torch.ops import voxel as vx
+from eskf_lio_torch.utils.graphs import device_if
 
 INT32_MAX = sm.INT32_MAX
 
@@ -176,11 +180,14 @@ def _slot_values(skey, row, payload) -> torch.Tensor:
 
 
 def _scatter_rows(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor, ok):
-    """table with rows `idx` set to `vals` where `ok`; other rows are
-    routed to a dump row past the end and dropped (JAX `mode="drop"`)."""
+    """table with rows `idx` set to `vals` where `ok`; other rows, and rows
+    whose index is out of range, are routed to a dump row past the end and
+    dropped (JAX `mode="drop"`).  A branch that is computed but not taken
+    (`utils.graphs.select_branches`) may hold such indices."""
     n = table.shape[0]
     ext = torch.cat([table, table[:1]])
-    ext[torch.where(ok, idx.to(torch.int64), n)] = vals
+    idx = idx.to(torch.int64)
+    ext[torch.where(ok & (idx >= 0) & (idx < n), idx, n)] = vals
     return ext[:n]
 
 
@@ -380,9 +387,11 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
     2. One d_view probe resolves every unique voxel against the delta tier:
        hits merge capped raw sums into their rows, misses append.
     3. If the appends would overflow the delta, delta + the batch's new
-       voxels fold into MAIN (host branch on one scalar).
+       voxels fold into MAIN (`device_if` on one device bool).
 
-    Returns (new_map, num_dropped)."""
+    Returns (new_map, num_dropped).  Eagerly the result is new tensors (the
+    main tier shared with `vmap` when nothing folds); inside a graph capture
+    the result is `vmap`'s own buffers, written in place."""
     dtype = points.dtype
     dev = points.device
     n = points.shape[0]
@@ -434,9 +443,9 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
     miss = u_live & ~found
     n_miss = miss.sum()
     d_fill = vmap.d_fill()
-    would_overflow = bool(d_fill + n_miss > d_cap)  # host branch (one sync)
+    would_overflow = d_fill + n_miss > d_cap
 
-    if would_overflow:
+    def fold():
         ex_skey = torch.where(miss, u_skey, INT32_MAX)
         ex_pay = torch.where(miss[:, None], u_capped, 0.0)
         m_skey, m_payload, m_view, overflow = _fold_into_main(
@@ -445,8 +454,9 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
             torch.cat([d_payload, ex_pay]),
             cap,
         )
-        o_dskey, o_dpay, o_dview = _empty_delta(vmap)
-    else:
+        return (m_skey, m_payload, m_view, *_empty_delta(vmap), overflow)
+
+    def append():
         # segmented rank of slot-claiming misses within their (contiguous)
         # bucket runs
         bhead = torch.ones(n, dtype=torch.bool, device=dev)
@@ -471,8 +481,14 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
             _slot_values(u_skey, torch.where(found, drow, new_drow), new_sum),
             found | acc,
         )
-        m_skey, m_payload, m_view = vmap.skey, vmap.payload, vmap.view
+        # the main tier passes through: under capture it is not copied
+        return (vmap.skey, vmap.payload, vmap.view, o_dskey, o_dpay, o_dview, overflow)
 
+    # under capture both branches write the map's own buffers
+    outs = (*vmap[1:], torch.zeros((), dtype=torch.int64, device=dev))
+    m_skey, m_payload, m_view, o_dskey, o_dpay, o_dview, overflow = device_if(
+        would_overflow, fold, outs, otherwise=append
+    )
     new_map = VoxelMap(
         origin=vmap.origin,
         skey=m_skey, payload=m_payload, view=m_view,

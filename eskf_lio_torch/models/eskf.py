@@ -233,10 +233,11 @@ def predict_chunk_prefix(
 
     # --- base nominal state at the last base sample -------------------------
     steps = torch.arange(1, m + 1, dtype=torch.int64, device=dev)
-    n_base = torch.max(torch.where(bmask, steps, 0))
-    base_p = p_hist[n_base]
-    base_q = q_hist[n_base]
-    base_v = torch.cat([state.v[None], v_all])[n_base]
+    # a [1] device index: indexing with the 0-dim max would read it on the host
+    n_base = torch.max(torch.where(bmask, steps, 0)).reshape(1)
+    base_p = p_hist.index_select(0, n_base)[0]
+    base_q = q_hist.index_select(0, n_base)[0]
+    base_v = torch.cat([state.v[None], v_all]).index_select(0, n_base)[0]
 
     # --- covariance via suffix transition products -------------------------
     dt_b = torch.where(bmask, dt, 0.0)
@@ -254,9 +255,12 @@ def predict_chunk_prefix(
     D = torch.zeros((m, 18), dtype=dtype, device=dev)
     D[:, 3:15] = q_scaled.to(dtype)
 
-    P_base = S_full @ state.P @ S_full.T + torch.einsum(
-        "mij,mkj->ik", S * D[:, None, :], S
-    )
+    # Σ_m S_m D_m S_mᵀ as M small products summed over m: one [18, 18M] x
+    # [18M, 18] contraction (the einsum) splits its long inner dimension
+    # over the CPU's threads, so its bits would follow the thread count
+    P_base = S_full @ state.P @ S_full.T + (
+        (S * D[:, None, :]) @ S.transpose(1, 2)
+    ).sum(0)
     P_base = 0.5 * (P_base + P_base.T)
 
     base = FilterState(

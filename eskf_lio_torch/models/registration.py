@@ -7,10 +7,14 @@ voxel map's per-voxel Gaussians, with the reference's semantics
 r = p − μ, left-compose se3-exp(ξ); convergence on cos θ and ‖t‖²,
 bounded by `icp_max_iterations`.
 
-The JAX `lax.while_loop` becomes a Python loop that reads `converged` on
-the host once per GN iteration (one device sync per iteration; a CUDA
-graph or a device-side loop is later work).  The normal equations go
-through kernel A (`ops/gn_normal_eq.py`) unless `gn_backend="einsum"`.
+The JAX `lax.while_loop` (`eskf_lio_tpu/models/registration.py:298`, cond
+`it < max & ~conv`) is `utils.graphs.device_while` over a device carry:
+inside a captured step a CUDA WHILE node, so the loop runs on the device
+with no host read; eagerly a Python loop that reads the condition once per
+GN iteration.  The adaptive re-match (`lax.cond`, ibid. `:217`) and
+`icp_relookup_every > 1` guard the lookup with `device_if`.  The normal
+equations go through kernel A (`ops/gn_normal_eq.py`) unless
+`gn_backend="einsum"`.
 
 Two hooks serve the sharded map (`parallel/sharded_map.py`): `lookup_fn`
 answers from a map shard, and `reduce_fn` sums each iteration's normal
@@ -28,12 +32,13 @@ from eskf_lio_torch.config import Config
 from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.ops import gn_normal_eq, lie
 from eskf_lio_torch.types import Pose, ProcessedScan
+from eskf_lio_torch.utils.graphs import device_if, device_while
 
 
 class AlignResult(NamedTuple):
     pose: Pose
-    iterations: int  # GN iterations run (host value: the loop counts them)
-    converged: bool  # host value: the loop reads it every iteration
+    iterations: torch.Tensor  # int64 scalar: GN iterations run
+    converged: torch.Tensor  # bool scalar
     num_correspondences: torch.Tensor  # int64 scalar (last iteration)
 
 
@@ -170,21 +175,32 @@ def align(
     # border; default 0 = re-match every iteration (reference parity)
     delta = float(config.icp_rematch_threshold)
     adaptive = delta > 0.0
+    max_it = int(config.icp_max_iterations)
+    dev, dtype = scan.points.device, scan.points.dtype
+    n_slices = scan.points.shape[0] if sliced else 1
 
-    R_tot, t_tot = guess.R, guess.t
-    it, conv = 0, False
-    num_corr = torch.zeros((), dtype=torch.int64, device=scan.points.device)
-    corr = None
-    need = None  # adaptive: which slices re-match (one flag without slices)
-    while it < config.icp_max_iterations and not conv:
+    def body(carry):
+        """One GN iteration.  carry = (active, it, conv, R_tot, t_tot,
+        num_corr, need, mu, cov_map_packed, hit): `need` is the adaptive
+        re-match flag per slice, (mu, cov_map_packed, hit) the cached
+        correspondences."""
+        _, it, _, R_tot, t_tot, _, need, *corr = carry
         pts_w = lie.transform_points(R_tot, t_tot, scan.points)
-        if corr is None or (it % relook == 0 if need is None else all(need)):
+        if adaptive:
+            def relookup():
+                new = lookup_fn(pts_w)
+                if not sliced:
+                    return new
+                # only the slices whose flag is set take the new matches
+                return tuple(
+                    torch.where(need.view(-1, *(1,) * (x.dim() - 1)), x, old)
+                    for x, old in zip(new, corr)
+                )
+            corr = device_if(need.any(), relookup, outs=corr)
+        elif relook > 1:
+            corr = device_if(it % relook == 0, lambda: lookup_fn(pts_w), outs=corr)
+        else:
             corr = lookup_fn(pts_w)
-        elif need is not None and any(need):  # some slices re-match, not all
-            corr = tuple(
-                torch.stack([new[i] if need[i] else old[i] for i in range(len(need))])
-                for new, old in zip(lookup_fn(pts_w), corr)
-            )
         mu, cov_map_packed, hit = corr
         mask = scan.valid & hit
 
@@ -206,7 +222,7 @@ def align(
 
         # left-compose (`Registration.cpp:19`)
         R_tot, t_tot = R_d @ R_tot, R_d @ t_tot + t_d
-        conv_t = converged_check(R_d, t_d, config)
+        conv = converged_check(R_d, t_d, config)
         if adaptive:
             # bound on any scan point's displacement by this increment,
             # rotating about the scan centroid c
@@ -216,9 +232,31 @@ def align(
             r_c = torch.sqrt((((pts_w - c[..., None, :]) ** 2).sum(-1) * w).amax(-1))
             theta = torch.arccos(torch.clamp(0.5 * (torch.trace(R_d) - 1.0), -1.0, 1.0))
             drift = c @ (R_d - torch.eye(3, dtype=pts_w.dtype, device=pts_w.device)).T + t_d
-            need = (theta * r_c + torch.linalg.norm(drift, dim=-1) > delta).reshape(-1).tolist()
-        it += 1
-        conv = bool(conv_t)  # the one host sync of the iteration
+            need = (theta * r_c + torch.linalg.norm(drift, dim=-1) > delta).reshape(-1)
+        it = it + 1
+        active = (it < max_it) & ~conv
+        return (active, it, conv, R_tot, t_tot, num_corr.reshape(()).to(torch.float32),
+                need, mu, cov_map_packed, hit)
+
+    # the correspondences of the first pass are always looked up: the cache
+    # starts empty and every slice needs a match
+    n_rows = scan.points.shape[:-1]
+    carry = (
+        torch.full((), max_it > 0, dtype=torch.bool, device=dev),
+        torch.zeros((), dtype=torch.int64, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev),
+        guess.R, guess.t,
+        torch.zeros((), dtype=torch.float32, device=dev),
+        torch.ones(n_slices, dtype=torch.bool, device=dev),
+        torch.zeros((*n_rows, 3), dtype=dtype, device=dev),
+        torch.zeros((*n_rows, 6), dtype=dtype, device=dev),
+        torch.zeros(n_rows, dtype=torch.bool, device=dev),
+    )
+    if max_it > 0:
+        # the first pass always runs (it = 0 < max, not converged): outside
+        # the loop, so that an eager loop reads its condition once a pass
+        carry = device_while(body, body(carry), max_it - 1)
+    _, it, conv, R_tot, t_tot, num_corr, *_ = carry
     return AlignResult(
         pose=Pose(R_tot, t_tot),
         iterations=it,

@@ -10,6 +10,12 @@ point returns `cudaGetLastError()` and `CudaKernel.launch` raises when it is
 not 0.  Nothing here runs when a module is imported: the CPU tests import
 every module on hosts without `nvcc`.
 
+A kernel launched while a CUDA graph is being captured
+(`utils/graphs.py`) runs on every replay of the graph, not once: it takes
+its scratch from a buffer reserved for captures before the capture began
+(`reserve_capture`), and its launch is counted on the device, by a counter
+increment captured beside it, so that `launch_count()` sees every replay.
+
 Processes that start together (a multi-process run on one checkout) do not
 race: each builds to a temporary name of its own and renames it into place,
 which is atomic, so a library that exists is whole.  Two may build the same
@@ -61,12 +67,18 @@ class CudaKernel:
         self.name = name
         self.source = CSRC_DIR / source
         self.functions = functions  # C entry point -> ctypes argtypes
-        self.launches = 0
+        self.launches = 0  # launches made outside a graph capture
         # (device index, stream) -> what the wrapper keeps there: a kernel
         # that resets its own scratch (ticket, epoch, partial sums) gets one
         # zeroed buffer per stream and reuses it, because calls on one
         # stream are ordered
         self.scratch: dict[tuple[int, int], object] = {}
+        # device index -> (scratch for captured launches, int64 counter of
+        # their executions); reserved before a capture, never inside one.
+        # Captured launches share one buffer: a graph runs its launches in
+        # order and graphs are replayed one at a time.
+        self.capture_state: dict[int, tuple[object, object]] = {}
+        self._retired: list = []
         self.build_seconds: float | None = None
         self.build_log = ""
         self._lib: ctypes.CDLL | None = None
@@ -98,15 +110,58 @@ class CudaKernel:
             self._constants[fn] = getattr(self.lib(), fn)()
         return self._constants[fn]
 
-    def launch(self, fn: str, *args) -> None:
-        """Call a C entry point that launches the kernel on the given
-        stream, raise on a launch error, and count the launch."""
+    def call(self, fn: str, *args) -> None:
+        """Call a C entry point that returns a CUDA error code; raise on an
+        error."""
         lib = self.lib()
         err = getattr(lib, fn)(*args)
         if err != 0:
             msg = getattr(lib, f"{self.name}_error_string")(err).decode()
             raise RuntimeError(f"{self.name}.{fn} failed: CUDA error {err}: {msg}")
-        self.launches += 1
+
+    def launch(self, fn: str, *args, device=None, capturing: bool = False) -> None:
+        """Call a C entry point that launches the kernel on the given
+        stream, raise on a launch error, and count the launch: on the host,
+        or, for a launch captured into a graph on `device`, on the device."""
+        self.call(fn, *args)
+        if capturing:
+            self.capture_state[device.index][1].add_(1)
+        else:
+            self.launches += 1
+
+    def reserve_capture(self, device, n_bytes: int) -> None:
+        """Allocate and zero, outside any capture, the scratch that launches
+        captured on `device` use (at least `n_bytes`) and their counter."""
+        import torch
+
+        held = self.capture_state.get(device.index)
+        if held is None or held[0].numel() * 8 < n_bytes:
+            if held is not None:
+                # graphs captured before may still launch on the old buffer
+                self._retired.append(held[0])
+            count = held[1] if held else torch.zeros((), dtype=torch.int64, device=device)
+            scratch = torch.zeros((n_bytes + 7) // 8, dtype=torch.int64, device=device)
+            self.capture_state[device.index] = (scratch, count)
+
+    def capture_scratch(self, device, n_bytes: int):
+        """The reserved scratch for a launch being captured on `device`."""
+        held = self.capture_state.get(device.index)
+        if held is None or held[0].numel() * 8 < n_bytes:
+            raise RuntimeError(
+                f"{self.name}: no scratch of {n_bytes} bytes was reserved on {device} "
+                "before the graph capture (reserve_capture); a capture may not allocate it"
+            )
+        return held[0]
+
+    def launch_count(self) -> int:
+        """Launches so far: those made eagerly and the executions of
+        captured ones (one read of each device counter)."""
+        return self.launches + sum(int(count) for _, count in self.capture_state.values())
+
+    def reset_launches(self) -> None:
+        self.launches = 0
+        for _, count in self.capture_state.values():
+            count.zero_()
 
 
 def build(kernels: list[CudaKernel]) -> dict[str, float]:

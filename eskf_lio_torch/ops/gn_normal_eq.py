@@ -97,8 +97,9 @@ def normal_equations_rotated(
     On a CUDA device the kernel runs on the current stream and keeps its
     scratch (partial sums, ticket) in one buffer per device and stream that
     is reused from call to call; calls on one stream are ordered, so they
-    never overlap.  The three results are views of one fresh 43-float
-    tensor and stay valid after later calls."""
+    never overlap.  A launch captured into a graph uses the buffer reserved
+    for captures instead (`reserve_capture`).  The three results are views
+    of one fresh 43-float tensor and stay valid after later calls."""
     n = _check(pts_w, covs_body_packed, R, mu_map, cov_map_packed, mask)
     dev = pts_w.device
     if dev.type == "cpu":
@@ -115,7 +116,12 @@ def normal_equations_rotated(
     mu_map, cov_map_packed = mu_map.contiguous(), cov_map_packed.contiguous()
     mask = mask.contiguous()
     stream = stream_handle(dev)
-    scratch = KERNEL.scratch.get((dev.index, stream))
+    capturing = torch.cuda.is_current_stream_capturing()
+    if capturing:
+        # a captured launch takes the scratch reserved before the capture
+        scratch = KERNEL.capture_scratch(dev, KERNEL.query("gn_normal_eq_scratch_bytes"))
+    else:
+        scratch = KERNEL.scratch.get((dev.index, stream))
     if scratch is None:
         # partial sums and the ticket, which the kernel resets itself
         n_bytes = KERNEL.query("gn_normal_eq_scratch_bytes")
@@ -128,8 +134,15 @@ def normal_equations_rotated(
         R.data_ptr(), R.stride(0), R.stride(1),
         mu_map.data_ptr(), cov_map_packed.data_ptr(), mask.data_ptr(), n,
         scratch.data_ptr(), out.data_ptr(), stream,
+        device=dev, capturing=capturing,
     )
     return out.as_strided((6, 6), (6, 1)), out[36:42], out[42]
+
+
+def reserve_capture(device: torch.device) -> None:
+    """Reserve, before a graph capture, the scratch of captured launches on
+    `device` (utils/graphs.py)."""
+    KERNEL.reserve_capture(device, KERNEL.query("gn_normal_eq_scratch_bytes"))
 
 
 def launch_empty_kernel(device: torch.device) -> None:

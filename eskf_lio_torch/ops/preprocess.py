@@ -51,10 +51,12 @@ def deskew(
     idx_b = torch.clamp(torch.searchsorted(ts, zero, right=True) - 1, 0, m1 - 1)
     last_valid = hist.valid.sum() - 1
     idx_a = torch.minimum(torch.clamp(idx_b + 1, 0, m1 - 1), last_valid)
+    # gathers by device indices (indexing with a 0-dim tensor would read it
+    # on the host)
+    ab = torch.stack([idx_b, idx_a]).reshape(2)
+    p_ab, q_ab, t_ab = (x.index_select(0, ab) for x in (hist.p, hist.q, ts))
     p_end, q_end = lie.interpolate_pose(
-        hist.p[idx_b], hist.q[idx_b], ts[idx_b],
-        hist.p[idx_a], hist.q[idx_a], ts[idx_a],
-        zero,
+        p_ab[0], q_ab[0], t_ab[0], p_ab[1], q_ab[1], t_ab[1], zero,
     )
     T_end_inv = Pose(lie.quat_to_mat(q_end), p_end).inverse()
 
@@ -225,20 +227,19 @@ def downsample_and_covariances(
         t_m = t_qm[:, 3:13]
 
     # ---- separable 3x3x3 neighbourhood aggregation ------------------------
-    def axis_vec(i):
-        e = torch.zeros(3, dtype=dtype, device=dev)
-        e[i] = vs
-        return e
+    # the three axis steps as rows of vs·I, made by one kernel (writing a
+    # Python number into a device tensor would be an upload)
+    axis_vec = torch.eye(3, dtype=dtype, device=dev) * vs
 
-    m_z = _axis_pass(t_packed, t_m, axis_vec(2))
+    m_z = _axis_pass(t_packed, t_m, axis_vec[2])
 
     ky = _rotate_key(t_packed, 1)
     ky_s, _, packed_y, m_zs = sm.sort_perm(ky, t_packed, m_z)
-    m_y = _axis_pass(ky_s, m_zs, axis_vec(1))
+    m_y = _axis_pass(ky_s, m_zs, axis_vec[1])
 
     kx = _rotate_key(packed_y, 0)
     kx_s, _, packed_x, m_ys = sm.sort_perm(kx, packed_y, m_y)
-    m_x = _axis_pass(kx_s, m_ys, axis_vec(0))
+    m_x = _axis_pass(kx_s, m_ys, axis_vec[0])
 
     # back to ascending packed (= head-compacted) order
     _, _, nb = sm.sort_perm(packed_x, m_x)  # [K, 10] 27-nbhd moments

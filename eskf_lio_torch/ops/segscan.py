@@ -34,10 +34,33 @@ KERNEL = CudaKernel(
     },
 )
 
+# tile capacity of the capture scratch reserved on each device
+_CAPTURE_TILES: dict[int, int] = {}
+
+
+def reserve_capture(device: torch.device, n_rows: int) -> None:
+    """Reserve, before a graph capture, the scratch of captured launches of
+    up to `n_rows` rows on `device` (utils/graphs.py)."""
+    tile = KERNEL.query("segscan_tile_rows")
+    cap = max((n_rows + tile - 1) // tile, 1024, _CAPTURE_TILES.get(device.index, 0))
+    KERNEL.reserve_capture(device, KERNEL.lib().segscan_scratch_bytes(cap))
+    _CAPTURE_TILES[device.index] = cap
+
+
 def _scratch(device: torch.device, stream: int, tiles: int) -> tuple[torch.Tensor, int]:
     """The kernel's scratch buffer on this device and stream and its capacity
     in tiles.  The kernel keeps its ticket, epoch and published tile sums
-    there and resets them itself, so the buffer is zeroed once and reused."""
+    there and resets them itself, so the buffer is zeroed once and reused:
+    zeroing it again inside a captured graph would restart its epoch on
+    every replay, so a capture takes the buffer reserved beforehand."""
+    if torch.cuda.is_current_stream_capturing():
+        cap = _CAPTURE_TILES.get(device.index, 0)
+        if cap < tiles:
+            raise RuntimeError(
+                f"segsum_sorted: {tiles} tiles exceed the {cap} reserved for captures "
+                "on this device (segscan.reserve_capture)"
+            )
+        return KERNEL.capture_scratch(device, KERNEL.lib().segscan_scratch_bytes(cap)), cap
     key = (device.index, stream)
     held = KERNEL.scratch.get(key)
     if held is None or held[1] < tiles:
@@ -85,6 +108,7 @@ def segsum_sorted(skey_sorted: torch.Tensor, vals: torch.Tensor) -> torch.Tensor
         "segscan_launch",
         skey_sorted.data_ptr(), vals.data_ptr(), n, w,
         scratch.data_ptr(), cap, out.data_ptr(), stream,
+        device=vals.device, capturing=torch.cuda.is_current_stream_capturing(),
     )
     return out
 

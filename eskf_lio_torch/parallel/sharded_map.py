@@ -404,9 +404,12 @@ class ShardedOdometry(odo.Odometry):
     ):
         self.mesh = ShardMesh.create(n_devices or dist.process_count(), device)
         super().__init__(config, init_state=init_state, device=self.mesh.device)
-        # override the steps with the sharded versions
-        self.scan_step = make_sharded_scan_step(config, self.mesh)
-        self.init_step = make_sharded_init_step(config, self.mesh)
+
+    def _make_steps(self):
+        """The sharded steps (eager: their sums cross the process group)."""
+        return (make_sharded_scan_step(self.config, self.mesh),
+                make_sharded_init_step(self.config, self.mesh),
+                odo.make_predict_only(self.config, self.device))
 
     @property
     def voxmap(self) -> ShardedVoxelMap:

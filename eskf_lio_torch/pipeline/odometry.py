@@ -4,8 +4,14 @@
 `make_step_core` is the main path of one scan — IMU-prefix prediction,
 deskew / downsample / covariances, VGICP alignment, the ESKF pose update,
 map insert and the periodic eviction — over tensors on one device.  The
-JAX package jits it; here it runs eagerly, with host branches where JAX has
-`lax.cond` (eviction is host-known; the insert fold is one scalar read).
+JAX package jits its step builders (`eskf_lio_tpu/pipeline/odometry.py:185,
+208,232`); here, on a CUDA device, `make_scan_step` and `make_predict_only`
+return steps captured into CUDA graphs over static buffers
+(`GraphedScanStep`, `GraphedPredict`, on `utils/graphs.py`), whose GN loop
+and insert fold branch on the device: a replay reads nothing back.  The
+eviction flag is host-known, as in the JAX package, so the scan step holds
+one graph with eviction and one without.  On the CPU the same functions run
+eagerly, with one host read per device decision.
 
 `Odometry` is the scan-at-a-time driver around it: the host does what the
 reference's ROS threads and queues do — buffering, f64 timekeeping, chunk
@@ -22,7 +28,9 @@ profiler the ranges cost a few microseconds a step.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -38,6 +46,21 @@ from eskf_lio_torch.models import eskf, registration
 from eskf_lio_torch.ops import lie, preprocess
 from eskf_lio_torch.types import FilterState, ImuChunk, Pose, ProcessedScan, Scan
 from eskf_lio_torch.utils.convert import from_numpy
+from eskf_lio_torch.utils.graphs import StepGraph, assign
+
+# the step's diagnostics, in the order of a captured step's diagnostic
+# vector; the flags among them are read back as bools
+DIAG_KEYS = (
+    "icp_iterations", "icp_converged", "num_correspondences", "inserted",
+    "dropped_points", "removed_voxels", "num_scan_points",
+    "align_slice_overflow", "pose_finite",
+)
+DIAG_FLAGS = ("icp_converged", "inserted", "pose_finite")
+
+
+def diag_vector(diag: dict) -> torch.Tensor:
+    """The step's diagnostics as one int64 vector in `DIAG_KEYS` order."""
+    return torch.stack([diag[k].to(torch.int64) for k in DIAG_KEYS])
 
 
 def lidar_extrinsics(config: Config, device="cuda", dtype=torch.float32) -> Pose:
@@ -130,10 +153,90 @@ def make_step_core(config: Config, device="cuda") -> Callable:
     return core
 
 
+def _chunk_buffer(config: Config, dev) -> ImuChunk:
+    """A zeroed static IMU chunk, the input buffer of a step on the card."""
+    m = config.max_imu_per_scan
+    return ImuChunk(
+        dt=torch.zeros(m, device=dev), t_rel=torch.zeros(m, device=dev),
+        gyro=torch.zeros((m, 3), device=dev), accel=torch.zeros((m, 3), device=dev),
+        valid=torch.zeros(m, dtype=torch.bool, device=dev),
+    )
+
+
+def _scan_buffer(config: Config, dev) -> Scan:
+    """A zeroed static packed scan, the input buffer of a step on the card."""
+    n = config.max_raw_points
+    return Scan(
+        points=torch.zeros((n, 3), device=dev), t_rel=torch.zeros(n, device=dev),
+        valid=torch.zeros(n, dtype=torch.bool, device=dev),
+    )
+
+
+class GraphedScanStep:
+    """`make_scan_step`'s step on a CUDA device: `make_step_core` over
+    static buffers (inputs, carry, diagnostics), captured into a CUDA graph
+    on first use — one graph with the eviction and one without, sharing a
+    memory pool — and replayed.  The GN loop and the insert fold run as
+    conditional nodes: a replay reads nothing back.
+
+    A call copies each argument that is not already its static buffer into
+    it, replays, and returns the static buffers themselves: state, map and
+    pose are overwritten by the next call, so a caller that keeps them
+    clones them.  `diag` holds views of one int64 vector (`diag_vec`, in
+    `DIAG_KEYS` order)."""
+
+    def __init__(self, config: Config, device):
+        dev = device_policy.resolve(device)
+        self.config = config
+        self.core = make_step_core(config, dev)
+        self.chunk = _chunk_buffer(config, dev)
+        self.scan = _scan_buffer(config, dev)
+        self.state = eskf.init_state(config, dev)
+        self.voxmap = vm.VoxelMap.create(
+            config.hash_capacity, config.map_delta_capacity, device=dev
+        )
+        self.prev_R = torch.eye(3, device=dev)
+        self.prev_t = torch.zeros(3, device=dev)
+        self.diag_vec = torch.zeros(len(DIAG_KEYS), dtype=torch.int64, device=dev)
+        self.diag = {k: self.diag_vec[i] for i, k in enumerate(DIAG_KEYS)}
+        pool = torch.cuda.graph_pool_handle()
+        # the graphs hold this step weakly: no reference cycle, so the graphs
+        # are destroyed with the step, never by a later garbage collection
+        # (which may run in the middle of another capture)
+        me = weakref.proxy(self)
+        self.graphs = {
+            evict: StepGraph(functools.partial(GraphedScanStep._step, me, evict), dev,
+                             config.max_raw_points, pool)
+            for evict in (False, True)
+        }
+
+    def _step(self, do_evict: bool) -> None:
+        (state, voxmap, R, t), diag = self.core(
+            (self.state, self.voxmap, self.prev_R, self.prev_t),
+            (self.chunk, self.scan, do_evict),
+        )
+        assign(self.state, state)
+        assign(self.voxmap, voxmap)
+        assign((self.prev_R, self.prev_t), (R, t))
+        self.diag_vec.copy_(diag_vector(diag))
+
+    def __call__(self, state, voxmap, prev_R, prev_t, chunk: ImuChunk, scan: Scan, do_evict):
+        assign(self.state, state)
+        assign(self.voxmap, voxmap)
+        assign((self.prev_R, self.prev_t, *self.chunk, *self.scan),
+                (prev_R, prev_t, *chunk, *scan))
+        self.graphs[bool(do_evict) and self.config.remove_distant_points]()
+        return self.state, self.voxmap, self.prev_R, self.prev_t, self.diag
+
+
 def make_scan_step(config: Config, device="cuda") -> Callable:
     """One scan: scan_step(state, voxmap, prev_R, prev_t, chunk, scan,
-    do_evict) -> (state, voxmap, R, t, diag)."""
-    core = make_step_core(config, device)
+    do_evict) -> (state, voxmap, R, t, diag).  On a CUDA device a
+    `GraphedScanStep`; on the CPU `make_step_core` run eagerly."""
+    dev = device_policy.resolve(device)
+    if dev.type == "cuda":
+        return GraphedScanStep(config, dev)
+    core = make_step_core(config, dev)
 
     def scan_step(state, voxmap, prev_R, prev_t, chunk: ImuChunk, scan: Scan, do_evict):
         (corrected, voxmap, R, t), diag = core(
@@ -165,14 +268,69 @@ def make_init_step(config: Config, device="cuda") -> Callable:
     return init_step
 
 
+class GraphedPredict:
+    """`make_predict_only`'s step on a CUDA device: the prediction through
+    one chunk over a static state and chunk, captured once and replayed.
+    A call returns the static state (overwritten by the next call)."""
+
+    def __init__(self, config: Config, device):
+        dev = device_policy.resolve(device)
+        self.noise = eskf.make_noise_params(config, dev)
+        self.chunk = _chunk_buffer(config, dev)
+        self.state = eskf.init_state(config, dev)
+        self.graph = StepGraph(functools.partial(GraphedPredict._step, weakref.proxy(self)),
+                               dev, config.max_raw_points)
+
+    def _step(self) -> None:
+        assign(self.state, eskf.predict_chunk_prefix(self.state, self.chunk, self.noise)[0])
+
+    def __call__(self, state: FilterState, chunk: ImuChunk) -> FilterState:
+        assign((*self.state, *self.chunk), (*state, *chunk))
+        self.graph()
+        return self.state
+
+
 def make_predict_only(config: Config, device="cuda") -> Callable:
-    """Overflow path: advance the filter through a chunk without a scan."""
-    noise = eskf.make_noise_params(config, device)
+    """Overflow path: advance the filter through a chunk without a scan.
+    On a CUDA device a `GraphedPredict`; on the CPU run eagerly."""
+    dev = device_policy.resolve(device)
+    if dev.type == "cuda":
+        return GraphedPredict(config, dev)
+    noise = eskf.make_noise_params(config, dev)
 
     def predict_only(state: FilterState, chunk: ImuChunk) -> FilterState:
         return eskf.predict_chunk_prefix(state, chunk, noise)[0]
 
     return predict_only
+
+
+class _PinnedUploads:
+    """Host-to-device copies of numpy arrays into fixed device buffers
+    through page-locked staging buffers, without waiting for the device.
+    Two sets of staging buffers are used in turn; a set is refilled only
+    once the copies out of it have completed (an event recorded behind
+    them), which the driver's read-back of the step in between has already
+    ensured."""
+
+    def __init__(self, dsts: list[torch.Tensor]):
+        self.dsts = dsts
+        self.slots = [
+            [torch.empty(d.shape, dtype=d.dtype, pin_memory=True) for d in dsts]
+            for _ in range(2)
+        ]
+        self.events: list[torch.cuda.Event | None] = [None, None]
+        self.turn = 0
+
+    def upload(self, arrays) -> None:
+        slot, self.turn = self.turn, 1 - self.turn
+        done = self.events[slot]
+        if done is not None and not done.query():
+            done.synchronize()
+        for a, pinned, dst in zip(arrays, self.slots[slot], self.dsts):
+            pinned.numpy()[...] = a  # the cast of `from_numpy` (f64 -> f32)
+            dst.copy_(pinned, non_blocking=True)
+        self.events[slot] = torch.cuda.Event()
+        self.events[slot].record()
 
 
 # ---------------------------------------------------------------------------
@@ -199,26 +357,22 @@ class StageTimer:
         return self.total / max(self.count, 1)
 
 
-# diagnostics read back as flags; the others are counts
-_DIAG_FLAGS = ("icp_converged", "inserted", "pose_finite")
-
-
 class Odometry:
     """Host-side driver: feeds measurement streams into the device step and
     records the trajectory.  Single-device.
 
     `h2d_bytes` and `device_reads` count what the driver itself moves: the
     bytes of the arrays it uploads and the transfers it reads back (each
-    read waits for the device).  The step's own host branches (one per GN
-    iteration, one in `insert`) are not in `device_reads`."""
+    read waits for the device).  On a CUDA device the scan step is a
+    `GraphedScanStep` (no host read inside it) and the uploads go from
+    page-locked buffers into fixed device buffers (the graphed step's static
+    inputs), without waiting; on the CPU the step's own host branches (one
+    per GN iteration, one in `insert`) are not in `device_reads`."""
 
     def __init__(self, config: Config, init_state: FilterState | None = None,
                  device="cuda"):
         self.config = config
         self.device = device_policy.resolve(device)
-        self.scan_step = make_scan_step(config, self.device)
-        self.init_step = make_init_step(config, self.device)
-        self.predict_only = make_predict_only(config, self.device)
 
         self.state = (
             init_state if init_state is not None else eskf.init_state(config, self.device)
@@ -228,6 +382,16 @@ class Odometry:
         )
         self.prev_R = torch.eye(3, device=self.device)
         self.prev_t = torch.zeros(3, device=self.device)
+        self.scan_step, self.init_step, self.predict_only = self._make_steps()
+        # on the card the uploads land in fixed input buffers: a graphed
+        # step's own, or buffers of the driver's (each step's reads of them
+        # are ordered on the stream before the next upload's copies)
+        self._staging = None
+        if self.device.type == "cuda":
+            graphed = isinstance(self.scan_step, GraphedScanStep)
+            chunk = self.scan_step.chunk if graphed else _chunk_buffer(config, self.device)
+            scan = self.scan_step.scan if graphed else _scan_buffer(config, self.device)
+            self._staging = (_PinnedUploads(list(chunk)), _PinnedUploads(list(scan)))
 
         self.initialized = False
         self.t_last_update: float = 0.0  # f64 host clock of the filter state
@@ -249,12 +413,24 @@ class Odometry:
         self.zero_corr_streak = 0
         self.zero_corr_limit = 10
 
+    def _make_steps(self):
+        """(scan step, init step, predict-only step) of this driver."""
+        return (make_scan_step(self.config, self.device),
+                make_init_step(self.config, self.device),
+                make_predict_only(self.config, self.device))
+
     # -- chunk/scan packing ------------------------------------------------
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """One numpy array -> one tensor on the device (f64 -> f32)."""
-        self.h2d_bytes += a.nbytes
-        return from_numpy(a, self.device)
+    def _upload(self, arrays: list[np.ndarray], which: int) -> list[torch.Tensor]:
+        """numpy arrays -> tensors on the device (f64 -> f32): on the card
+        into the fixed input buffers (`which`: 0 the chunk, 1 the scan), on
+        the CPU as new tensors."""
+        self.h2d_bytes += sum(a.nbytes for a in arrays)
+        if self._staging is None:
+            return [from_numpy(a, self.device) for a in arrays]
+        staging = self._staging[which]
+        staging.upload(arrays)
+        return staging.dsts
 
     def _build_chunk(self, records, t_end: float) -> ImuChunk:
         m = self.config.max_imu_per_scan
@@ -273,7 +449,7 @@ class Odometry:
             accel[i] = r.accel
             valid[i] = True
             prev_t = r.t
-        return ImuChunk(*(self._upload(a) for a in (dt, t_rel, gyro, accel, valid)))
+        return ImuChunk(*self._upload([dt, t_rel, gyro, accel, valid], 0))
 
     def _build_scan(self, rec: LidarRecord) -> tuple[Scan, int]:
         # pad/truncate into the fixed device layout — the C++ fast path
@@ -285,10 +461,7 @@ class Odometry:
             rec.points, rec.t, rec.end_time, self.config.max_raw_points
         )
         dropped_raw = max(len(rec.points) - int(n_packed), 0)
-        scan = Scan(
-            points=self._upload(xyz), t_rel=self._upload(t_rel), valid=self._upload(valid)
-        )
-        return scan, dropped_raw
+        return Scan(*self._upload([xyz, t_rel, valid], 1)), dropped_raw
 
     def _read_back(self, diag: dict) -> tuple[np.ndarray, np.ndarray, dict]:
         """The pose and the step's diagnostics on the host.  The values that
@@ -304,7 +477,7 @@ class Odometry:
         pose_t = flat[9:12].astype(np.float32)
         values = {**diag, **dict(zip(on_device, flat[12:]))}
         diag_host = {
-            k: np.asarray(v, bool if k in _DIAG_FLAGS else np.int64)
+            k: np.asarray(v, bool if k in DIAG_FLAGS else np.int64)
             for k, v in values.items()
         }
         return pose_R, pose_t, diag_host

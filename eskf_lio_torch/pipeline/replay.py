@@ -3,12 +3,17 @@
 
 A sequence is packed once into stacked tensors on the device, and the same
 per-scan step (`make_step_core`) runs over its rows.  The JAX package runs
-the rows under one `lax.scan` in one dispatch; here a Python loop launches
-the step's kernels eagerly.  Rows flagged `updates=False` are predict-only
-overflow rows (more IMU samples in a scan interval than one chunk holds):
-the filter advances through the chunk, the map and pose carry pass
-through.  The control flags (`evicts`, `updates`) stay on the host, since
-host branches read them.
+the rows under one `lax.scan` in one dispatch, with zero host round-trips in
+between; here, on a CUDA device, each row copies its inputs into the static
+inputs of the captured steps (`odometry.GraphedScanStep`,
+`odometry.GraphedPredict`) and replays one of them — the choice is
+host-known — and the row's pose and diagnostics are copied on the device
+into [B]-stacked outputs: a batch reads nothing back until `collect`.  On
+the CPU the rows run `make_step_core` eagerly.  Rows flagged
+`updates=False` are predict-only overflow rows (more IMU samples in a scan
+interval than one chunk holds): the filter advances through the chunk, the
+map and pose carry pass through.  The control flags (`evicts`, `updates`)
+stay on the host.
 """
 
 from __future__ import annotations
@@ -24,13 +29,17 @@ from eskf_lio_torch.io.dataset import Sequence
 from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.models import eskf
 from eskf_lio_torch.pipeline import odometry as odo
+from eskf_lio_torch.pipeline.odometry import DIAG_KEYS
 from eskf_lio_torch.types import FilterState, ImuChunk, Scan
 
-DIAG_KEYS = (
-    "icp_iterations", "icp_converged", "num_correspondences", "inserted",
-    "dropped_points", "removed_voxels", "num_scan_points",
-    "align_slice_overflow", "pose_finite",
-)
+
+def _predict_row_diag(state: FilterState) -> dict:
+    """A predict-only row's diagnostics: nothing aligned or inserted,
+    converged, and whether the advanced state is finite."""
+    finite = (torch.isfinite(state.p).all() & torch.isfinite(state.q).all()).to(torch.int64)
+    diag = dict.fromkeys(DIAG_KEYS, torch.zeros_like(finite))
+    diag.update(icp_converged=torch.ones_like(finite), pose_finite=finite)
+    return diag
 
 
 def make_replay_step(config: Config, device="cuda") -> Callable:
@@ -38,44 +47,38 @@ def make_replay_step(config: Config, device="cuda") -> Callable:
     replay(state, voxmap, prev_R, prev_t, chunks, scans, evicts, updates)
     -> (state, voxmap, prev_R, prev_t, Rs [B,3,3], ts [B,3], diags) with
     chunks / scans stacked over B rows on the device, evicts / updates [B]
-    host bools, and diags a dict of [B] tensors on the device."""
+    host bools, and diags a dict of [B] tensors on the device.  On a CUDA
+    device the steps are the captured ones and the returned carry is their
+    static buffers, which the next call overwrites."""
     dev = device_policy.resolve(device)
-    core = odo.make_step_core(config, dev)
-    noise = eskf.make_noise_params(config, dev)
-
-    def predict_row(carry, chunk):
-        state, voxmap, prev_R, prev_t = carry
-        final, _ = eskf.predict_chunk_prefix(state, chunk, noise)
-        zero = torch.zeros((), dtype=torch.int64, device=dev)
-        diag = dict.fromkeys(DIAG_KEYS, zero)
-        diag.update(
-            icp_iterations=0,
-            icp_converged=True,
-            inserted=torch.zeros((), dtype=torch.bool, device=dev),
-            pose_finite=torch.isfinite(final.p).all() & torch.isfinite(final.q).all(),
-        )
-        return (final, voxmap, prev_R, prev_t), diag
+    scan_step = odo.make_scan_step(config, dev)
+    predict = odo.make_predict_only(config, dev)
 
     def replay(state, voxmap, prev_R, prev_t, chunks: ImuChunk, scans: Scan,
                evicts, updates):
-        carry = (state, voxmap, prev_R, prev_t)
-        Rs, ts, diags = [], [], []
-        for b in range(chunks.dt.shape[0]):
+        n_rows = chunks.dt.shape[0]
+        Rs = torch.empty((n_rows, 3, 3), device=dev)
+        ts = torch.empty((n_rows, 3), device=dev)
+        diag_rows = torch.empty((n_rows, len(DIAG_KEYS)), dtype=torch.int64, device=dev)
+        carry = [state, voxmap, prev_R, prev_t]
+        for b in range(n_rows):
             chunk = ImuChunk(*(x[b] for x in chunks))
             if bool(updates[b]):
                 scan = Scan(*(x[b] for x in scans))
-                carry, diag = core(carry, (chunk, scan, bool(evicts[b])))
+                *carry, diag = scan_step(*carry, chunk, scan, bool(evicts[b]))
             else:
-                carry, diag = predict_row(carry, chunk)
-            Rs.append(carry[2])
-            ts.append(carry[3])
-            diags.append(diag)
-        stacked = {
-            k: torch.stack([torch.as_tensor(d[k], device=dev) for d in diags])
-            for k in DIAG_KEYS
+                carry[0] = predict(carry[0], chunk)
+                diag = _predict_row_diag(carry[0])
+            diag_rows[b] = odo.diag_vector(diag)
+            Rs[b] = carry[2]
+            ts[b] = carry[3]
+        diags = {
+            k: diag_rows[:, i].bool() if k in odo.DIAG_FLAGS else diag_rows[:, i]
+            for i, k in enumerate(DIAG_KEYS)
         }
-        return (*carry, torch.stack(Rs), torch.stack(ts), stacked)
+        return (*carry, Rs, ts, diags)
 
+    replay.scan_step, replay.predict = scan_step, predict
     return replay
 
 

@@ -1,8 +1,10 @@
 """The port on the card: both CUDA kernels against their plain versions,
 the replay through the kernels against the replay on the CPU, the voxel
 map's `insert` through kernel B (the same bits twice; the CPU's words), and
-the streaming driver's launch counts, and the sharded driver (both kernels
-at a shard's slice shapes; four shards on the one card, twice, bit for bit).
+the streaming driver's launch counts, the sharded driver (both kernels
+at a shard's slice shapes; four shards on the one card, twice, bit for bit),
+and the captured step: conditional nodes against Python control flow, the
+graphed replay against the eager step bit for bit.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -27,8 +29,11 @@ from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.ops import gn_normal_eq as gn
 from eskf_lio_torch.ops import lie
 from eskf_lio_torch.ops import segscan
-from eskf_lio_torch.pipeline import replay
+from eskf_lio_torch.models import eskf
+from eskf_lio_torch.pipeline import odometry, replay
 from eskf_lio_torch.pipeline.odometry import Odometry
+from eskf_lio_torch.types import ImuChunk
+from eskf_lio_torch.utils import graphs
 
 torch.set_num_threads(2)
 
@@ -71,9 +76,9 @@ def gn_rel_err(args, a, b):
 @pytest.mark.parametrize("n", [1, 127, 129, 255, 1000, 8192, 16384, 100000])
 def test_gn_kernel_matches_plain(dev, n):
     args = gn_args(n, n, dev)
-    before = gn.KERNEL.launches
+    before = gn.KERNEL.launch_count()
     out = gn.normal_equations_rotated(*args)
-    assert gn.KERNEL.launches == before + 1
+    assert gn.KERNEL.launch_count() == before + 1
     assert gn_rel_err(args, out, gn.normal_equations_rotated_ref(*args)) <= TOL
     assert out[2].shape == () and int(out[2]) == int(args[5].sum())
 
@@ -134,9 +139,9 @@ def test_segscan_kernel_matches_plain(dev, n, n_keys):
     keys, vals = seg_inputs(n, n_keys, dev)
     head = torch.ones(n, dtype=torch.bool, device=dev)
     head[1:] = keys[1:] != keys[:-1]
-    before = segscan.KERNEL.launches
+    before = segscan.KERNEL.launch_count()
     out = segscan.segsum_sorted(keys, vals)
-    assert segscan.KERNEL.launches == before + 1
+    assert segscan.KERNEL.launch_count() == before + 1
     ref = segscan.segsum_sorted_ref(keys, vals)
     scale = segscan.segsum_sorted_ref(keys, vals.abs())
     assert ((out[head] - ref[head]).abs() <= TOL * scale[head]).all()
@@ -204,11 +209,11 @@ def test_replay_through_kernels_matches_cpu(dev):
         max_imu_per_scan=48, hash_capacity_log2=16,
     )
     seq = dataset.make_synthetic_sequence(duration=1.5, points_per_scan=8000, seed=7)
-    a0, b0 = gn.KERNEL.launches, segscan.KERNEL.launches
+    a0, b0 = gn.KERNEL.launch_count(), segscan.KERNEL.launch_count()
     pos_gpu, _, diags, _ = replay.run_replay(cfg, seq, device=dev)
-    assert gn.KERNEL.launches - a0 == int(diags["icp_iterations"].sum())
+    assert gn.KERNEL.launch_count() - a0 == int(diags["icp_iterations"].sum())
     # the downsampler and `insert`, on every update scan and on the init scan
-    assert segscan.KERNEL.launches - b0 == 2 * len(pos_gpu)
+    assert segscan.KERNEL.launch_count() - b0 == 2 * len(pos_gpu)
     pos_cpu, _, _, _ = replay.run_replay(cfg, seq, device="cpu")
     np.testing.assert_allclose(pos_gpu, pos_cpu, atol=1e-2)
 
@@ -241,9 +246,9 @@ def insert_all(device):
 def test_insert_on_the_card_is_deterministic(dev):
     """Per-voxel sums come from kernel B, not from float atomics: the same
     batches give the same map bit for bit."""
-    b0 = segscan.KERNEL.launches
+    b0 = segscan.KERNEL.launch_count()
     first, again = insert_all(dev), insert_all(dev)
-    assert segscan.KERNEL.launches - b0 == 6  # one launch per insert
+    assert segscan.KERNEL.launch_count() - b0 == 6  # one launch per insert
     for name, x, y in zip(first._fields, first, again):
         assert torch.equal(x, y), name
 
@@ -280,11 +285,11 @@ def test_two_scan_odometry_launch_counts(dev):
     seq = dataset.make_synthetic_sequence(duration=0.5, points_per_scan=8000, seed=7)
     odo = Odometry(cfg)  # the default device is the card
     assert odo.device.type == "cuda"
-    a0, b0 = gn.KERNEL.launches, segscan.KERNEL.launches
+    a0, b0 = gn.KERNEL.launch_count(), segscan.KERNEL.launch_count()
     summary = odo.run(seq, max_scans=2)
     assert summary["num_scans"] == 2 and not summary["diverged"]
-    assert segscan.KERNEL.launches - b0 == 4
-    assert gn.KERNEL.launches - a0 == int(odo.diags[0]["icp_iterations"]) > 0
+    assert segscan.KERNEL.launch_count() - b0 == 4
+    assert gn.KERNEL.launch_count() - a0 == int(odo.diags[0]["icp_iterations"]) > 0
     assert odo.device_reads == 1 and np.isfinite(odo.positions).all()
 
 
@@ -320,12 +325,12 @@ def test_sharded_run_on_the_card_twice_equal_bits(dev):
     for _ in range(2):
         odo = ShardedOdometry(cfg, n_devices=4)  # the default device is the card
         assert odo.device.type == "cuda" and len(odo.voxmap.blocks) == 4
-        a0, b0 = gn.KERNEL.launches, segscan.KERNEL.launches
+        a0, b0 = gn.KERNEL.launch_count(), segscan.KERNEL.launch_count()
         summary = odo.run(seq, max_scans=6)
         assert summary["num_scans"] == 6 and not summary["diverged"]
         iters = sum(int(d["icp_iterations"]) for d in odo.diags)
-        assert gn.KERNEL.launches - a0 == 4 * iters > 0
-        assert segscan.KERNEL.launches - b0 == (1 + 4) * 6
+        assert gn.KERNEL.launch_count() - a0 == 4 * iters > 0
+        assert segscan.KERNEL.launch_count() - b0 == (1 + 4) * 6
         assert sum(int(d["gn_slice_overflow"]) + int(d["insert_slice_overflow"])
                    for d in odo.diags) == 0
         runs.append(odo)
@@ -337,3 +342,74 @@ def test_sharded_run_on_the_card_twice_equal_bits(dev):
     single = Odometry(cfg)
     single.run(seq, max_scans=6)
     np.testing.assert_allclose(first.positions, single.positions, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the captured step (utils/graphs.py)
+# ---------------------------------------------------------------------------
+
+
+def test_captured_branches_and_loop_on_the_card(dev):
+    """IF and WHILE nodes in a captured graph give the eager values, for
+    both values of the predicate, replay after replay."""
+    x = torch.zeros(1000, device=dev)
+    flag = torch.zeros((), dtype=torch.bool, device=dev)
+    stop = torch.zeros((), dtype=torch.int64, device=dev)
+    out = (torch.zeros(1000, device=dev), torch.zeros((), dtype=torch.int64, device=dev))
+
+    def step():
+        y, n = graphs.device_if(flag, lambda: (torch.sort(x, descending=True)[0], stop * 2),
+                                out, otherwise=lambda: (x + 1, stop))
+        carry = (stop > 0, torch.zeros((), dtype=torch.int64, device=dev), y)
+        _, k, z = graphs.device_while(
+            lambda c: (c[1] + 1 < stop, c[1] + 1, c[2] * 1.01 + 1), carry, 100)
+        out[0].copy_(z)
+        out[1].copy_(k)
+
+    graph = graphs.StepGraph(step, dev, segscan_rows=1024)
+    for f, s in ((True, 3), (False, 0), (True, 17), (False, 5)):
+        x.copy_(torch.randn(1000, device=dev))
+        flag.fill_(f)
+        stop.fill_(s)
+        y = torch.sort(x, descending=True)[0] if f else x + 1
+        for _ in range(s):
+            y = y * 1.01 + 1
+        graph()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], y) and int(out[1]) == s
+    assert graph.nodes > 0 and graph.capture_s > 0
+
+
+def test_graphed_scan_step_equals_the_eager_step_on_the_card(dev):
+    """A few scans through `GraphedScanStep` and through `make_step_core`
+    eagerly on the card: the same bits, and the kernels' launches counted on
+    the device."""
+    cfg = Config(
+        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), translation_noise=1e-4,
+        rotation_noise=3e-5, max_raw_points=8192, max_scan_points=4096,
+        max_imu_per_scan=48, hash_capacity_log2=14,
+    )
+    seq = dataset.make_synthetic_sequence(duration=1.5, points_per_scan=8000, seed=7)
+    init_scan, chunks, scans, evicts, updates, _ = replay.pack_sequence(cfg, seq, device=dev)
+    voxmap, _ = odometry.make_init_step(cfg, dev)(
+        vm.VoxelMap.create(cfg.hash_capacity, cfg.map_delta_capacity, device=dev), init_scan)
+    start = (eskf.init_state(cfg, dev), voxmap, torch.eye(3, device=dev),
+             torch.zeros(3, device=dev))
+    step = replay.make_replay_step(cfg, dev)
+    for k in (gn.KERNEL, segscan.KERNEL):
+        k.reset_launches()
+    *g_carry, g_Rs, g_ts, g_diags = step(*start, chunks, scans, evicts, updates)
+    torch.cuda.synchronize()
+    n_upd = int(updates.sum())
+    assert gn.KERNEL.launch_count() == int(g_diags["icp_iterations"].sum())
+    assert segscan.KERNEL.launch_count() == 2 * n_upd
+    core = odometry.make_step_core(cfg, dev)
+    carry = start
+    for b in range(chunks.dt.shape[0]):
+        assert bool(updates[b])
+        carry, diag = core(carry, (ImuChunk(*(x[b] for x in chunks)),
+                                   type(init_scan)(*(x[b] for x in scans)), bool(evicts[b])))
+        assert torch.equal(carry[2], g_Rs[b]) and torch.equal(carry[3], g_ts[b])
+        assert int(diag["icp_iterations"]) == int(g_diags["icp_iterations"][b])
+    for x, y in zip(carry[1], g_carry[1]):
+        assert torch.equal(x, y)

@@ -65,8 +65,9 @@ def test_scan_covers_the_parallel_package_and_it_ships():
 
 
 def test_port_has_both_kernel_sources():
+    """Kernels A and B, and the conditional graph nodes of the captured step."""
     names = {p.name for p in (ROOT / "eskf_lio_torch" / "csrc").glob("*.cu")}
-    assert names == {"gn_normal_eq.cu", "segscan.cu"}
+    assert names == {"gn_normal_eq.cu", "segscan.cu", "graph_cond.cu"}
 
 
 @pytest.mark.parametrize("cls", ["Config", "ImuConfig"])
