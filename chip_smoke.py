@@ -19,6 +19,10 @@
    function.  Beside kernel A's time it prints the duration of an empty
    <<<1,32>>> kernel, the least any launch takes; and it times kernel B
    against `index_add_` at the shape of `voxel_map.insert`'s per-voxel sums.
+   `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
+   process of its own, kernel B over values in host memory registered for
+   the card up to their last byte, where a load past the end is an illegal
+   address (it was, at N a multiple of the tile rows, before the halo fix).
 3. The captured step.  `control_flow`: the conditional graph nodes
    (`csrc/graph_cond.cu` through `utils/graphs.py`: an if/else around a
    sort, a WHILE loop holding an IF) against Python control flow on the same
@@ -58,15 +62,21 @@
 5. Sharded map and multi-process runtime (`eskf_lio_torch/parallel/`), at the
    live path's size and on its sequence:
    `sharded`: `ShardedOdometry(n_devices=4)` in this process, all four shards
-   (2^17 slots each) on the card, twice, beside the single-device run of
-   phase 4: ATE, positions within 2 cm of the single-device run's, no slice
-   overflow, every live key in its owner's block, distinct voxels and point
-   mass within 2 % of the single-device map, kernel A launched 4 x Σ GN
-   iterations and kernel B (1 + 4) x scans, device syncs per scan by calling
-   line, two runs equal bit for bit, and the step's last scan under
-   torch.profiler (`sharded_profile`: launches, busy time, stages).  (Phase 2 holds both kernels against
-   their plain versions and times them at a shard's slice shapes, A at
-   N = 8,192 and B at N = 16,384, W = 10: `slice_shapes`.)
+   (2^17 slots each) on the card, beside the single-device run of phase 4:
+   twice on its captured step (`GraphedShardedScanStep`, the default without
+   a process group; the driver's `step_reason` is printed) and once with the
+   eager sharded step in its place: ATE, positions within 2 cm of the
+   single-device run's, no slice overflow, every live key in its owner's
+   block, distinct voxels and point mass within 2 % of the single-device map,
+   kernel A launched 4 x Σ GN iterations and kernel B (1 + 4) x scans in each
+   run (counted on the device inside the graphs), the two graph runs and the
+   eager run equal bit for bit, device syncs per scan by calling line (at
+   most 2 on the captured step), scans/s of both, the graph path's device
+   time a scan between CUDA events, its capture seconds, nodes and peak
+   memory, and the eager step's last scan under torch.profiler
+   (`sharded_profile`: launches, busy time, stages).  (Phase 2 holds both
+   kernels against their plain versions and times them at a shard's slice
+   shapes, A at N = 8,192 and B at N = 16,384, W = 10: `slice_shapes`.)
    `dist`: two processes of `python -m eskf_lio_torch.cli --devices 4
    --coordinator 127.0.0.1:PORT --num-processes 2 --process-id I` (two shards
    each, both on the one card, hence `gloo`) on a HEAVY YAML and the first 20
@@ -77,14 +87,26 @@
    end, which moves the pose's time stamp), the PCD has one point
    per distinct voxel of the checkpointed map, process 1 wrote nothing; the
    same run cut at scan 10, checkpointed and resumed by two fresh processes
-   gives the straight run's trajectory; prints the all-reduce's time per call.
+   gives the straight run's trajectory; prints the all-reduce's time per call;
+   both processes must report their scan step as eager under `gloo`.
    `staged`: the sharded driver under a `gloo` group of one process, its
    all-reduces staged through the host as in `dist`, with the device syncs
-   counted: what the group adds to a scan.
+   counted: what the group adds to a scan; it must run eager, and equal the
+   graphed run of `sharded` bit for bit.
    `nccl`: one process group of one process on the card and one all-reduce
    of the 43-float buffer through the sharded step's `reduce_fn` (two cards
-   are not available to this script).
-6. Prints the kernels' JSON line, the nvidia-smi line, and last
+   are not available to this script); a sharded driver built under it must
+   report eager.
+6. `graph_stress`: `python -m eskf_lio_torch.utils.graph_stress` twice, each
+   run the small config's rounds and then HEAVY's in one process.  Its
+   default set (20 rounds, then 5): fresh graphed steps, single-device and
+   sharded, against the eager steps bit for bit, with the graphs replayed
+   out of capture order, destroyed and recaptured, collected inside another
+   capture, and captured on either side of a growth of the capture scratch,
+   all on one thread.  `--eager` (40 rounds, then 6): the same loop with no
+   graph, two eager steps a pair, the reproducer of kernel B's read past
+   the end of its values (ROADMAP.md, queue 3).
+7. Prints the kernels' JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}} — only when every phase passed.
 
 `--kernels-only` stops after phase 2 and prints no result line (a short run
@@ -544,6 +566,27 @@ def kernel_b_phase(dev, config, scan_points) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3: the captured step's control flow, and the main path end to end
 # ---------------------------------------------------------------------------
+
+
+def kernel_bounds_phase() -> list:
+    """`python -m eskf_lio_torch.utils.kernel_bounds` in a process of its
+    own: kernel B over values in host memory registered for the card up to
+    their last byte (a load past the end is an illegal address there), at N
+    a multiple of the tile rows, head rows against the plain version."""
+    proc = subprocess.run([sys.executable, "-m", "eskf_lio_torch.utils.kernel_bounds"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300)
+    line = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")]
+    check(proc.returncode == 0 and bool(line),
+          f"kernel_bounds exited {proc.returncode}: "
+          f"{(proc.stderr.strip().splitlines() or ['no output'])[-1][:300]}")
+    shapes = json.loads(line[-1].split(" ", 1)[1])["shapes"]
+    for s in shapes:
+        # relative to the sum of absolute values: at most the longest run's
+        # length (values in [0, 1), a key run over 40 % of the rows)
+        check(s["max_abs_err"] <= SEG_TOL * 0.4 * s["n"],
+              f"kernel_bounds N={s['n']} W={s['w']}: error {s['max_abs_err']}")
+    print("kernel_bounds " + json.dumps(shapes))
+    return shapes
 
 
 def control_flow_phase(dev) -> dict:
@@ -1390,72 +1433,131 @@ def point_mass(voxmap) -> float:
     return float(voxmap.payload[:, 0].sum() + voxmap.d_payload[:, 0].sum())
 
 
+def time_steps(odo, spans: list) -> None:
+    """Put the driver's scan step between two CUDA events a call; `spans`
+    gets the pairs, read after the run (no wait inside it)."""
+    import torch
+
+    inner = odo.scan_step
+
+    def timed(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    odo.scan_step = timed
+
+
 def sharded_phase(seq, kernels, single, slices):
     """`ShardedOdometry(n_devices=4)` in this process beside the
     single-device run of the stream phase (`single`, the same config and
-    sequence); `slices` is what `slice_kernel_phase` measured."""
+    sequence): twice on its captured step (the default without a process
+    group) and once on the eager sharded step; `slices` is what
+    `slice_kernel_phase` measured."""
     import numpy as np
     import torch
 
+    from eskf_lio_torch.map import voxel_map as vm
     from eskf_lio_torch.ops import sortmerge as sm
     from eskf_lio_torch.ops import voxel as vx
-    from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
+    from eskf_lio_torch.parallel.sharded_map import (
+        GraphedShardedScanStep, ShardedOdometry, make_sharded_scan_step,
+    )
 
     config = stream_config()
     first = ShardedOdometry(config, n_devices=N_SHARDS)  # the default device is the card
     check(first.device.type == "cuda", "ShardedOdometry did not default to the card")
+    check(first.graphed and isinstance(first.scan_step, GraphedShardedScanStep),
+          f"the sharded driver without a process group is not graphed: {first.step_reason}")
     check(len(first.voxmap.blocks) == N_SHARDS
           and first.voxmap.blocks[0].capacity == config.hash_capacity // N_SHARDS,
           "the map was not cut into four blocks of 2^19 / 4 slots")
+    step, spans = first.scan_step, []
+    time_steps(first, spans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     res_1, _ = drive(lambda cb: first.run(seq, on_scan=cb), first, kernels, seq,
                      n_shards=N_SHARDS)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # the median: the span of a call that captures a graph (the eviction's,
+    # inside the warm half) holds the capture's host time, the stream idle
+    warm = spans[len(spans) // 2:]
+    device_ms = float(np.median([s.elapsed_time(e) for s, e in warm]))
+    captured = {f"update{'_evict' if e else ''}": {"capture_s": g.capture_s, "nodes": g.nodes}
+                for e, g in step.graphs.items() if g.graph is not None}
+    # the step writes its blocks in place: keep a copy of this run's map
+    first_map = [vm.VoxelMap(*(x.clone() for x in b)) for b in first.voxmap.blocks]
+
     again = ShardedOdometry(config, n_devices=N_SHARDS)
-    step, last_call = again.scan_step, {}
+    res_2, _ = drive(lambda cb: again.run(seq, on_scan=cb), again, kernels, seq,
+                     n_shards=N_SHARDS, count_syncs=True)
+    # the same driver on the eager sharded step
+    eager = ShardedOdometry(config, n_devices=N_SHARDS)
+    eager_step, last_call = make_sharded_scan_step(config, eager.mesh), {}
 
     def keep_last_call(*args):
         last_call["args"] = args
-        return step(*args)
+        return eager_step(*args)
 
-    again.scan_step = keep_last_call
-    res_2, _ = drive(lambda cb: again.run(seq, on_scan=cb), again, kernels, seq,
+    eager.scan_step = keep_last_call
+    res_e, _ = drive(lambda cb: eager.run(seq, on_scan=cb), eager, kernels, seq,
                      n_shards=N_SHARDS, count_syncs=True)
-    # where the sharded step's time goes: its last scan five more times (the
-    # step is a function of its arguments; it builds new tensors)
+    # where the eager step's time goes: its last scan five more times (the
+    # eager step is a function of its arguments; it builds new tensors)
     n_prof = 5
-    profiled = trace_scans(lambda: [step(*last_call["args"]) for _ in range(n_prof)],
-                           n_prof, res_1["avg_step_ms"])
+    profiled = trace_scans(lambda: [eager_step(*last_call["args"]) for _ in range(n_prof)],
+                           n_prof, res_e["avg_step_ms"])
     print("sharded_profile " + json.dumps(profiled))
-    same_bits = (
-        np.array_equal(np.stack(first.trajectory_p), np.stack(again.trajectory_p))
-        and np.array_equal(np.stack(first.trajectory_R), np.stack(again.trajectory_R))
-        and all(maps_bit_equal(x, y) for x, y in zip(first.voxmap.blocks, again.voxmap.blocks))
-    )
+
+    def same_run(other):
+        return (
+            np.array_equal(np.stack(first.trajectory_p), np.stack(other.trajectory_p))
+            and np.array_equal(np.stack(first.trajectory_R), np.stack(other.trajectory_R))
+            and all(maps_bit_equal(x, y) for x, y in zip(first_map, other.voxmap.blocks))
+        )
+
+    twice_bits, eager_bits = same_run(again), same_run(eager)
 
     # every live key of block d, in both tiers, is owned by shard d
     foreign = 0
-    for d, block in enumerate(first.voxmap.blocks):
+    for d, block in enumerate(first_map):
         for skey in (block.skey, block.d_skey):
             live = skey[skey != sm.INT32_MAX]
             keys = sm.unpack_keys(sm.packed_of_skey(live), block.origin)
             foreign += int((vx.owner_hash(keys, N_SHARDS) != d).sum())
-    whole = first.voxmap.gather()
+    whole = vm.VoxelMap(*(torch.cat(fields) for fields in zip(*first_map)))
+    whole = whole._replace(origin=first_map[0].origin)
     voxels = (distinct_voxels(whole), distinct_voxels(single.voxmap))
     mass = (point_mass(whole), point_mass(single.voxmap))
     apart_m = float(np.linalg.norm(first.positions - single.positions, axis=1).max())
 
     res = dict(
-        shards=N_SHARDS, shard_slots=first.voxmap.blocks[0].capacity,
+        shards=N_SHARDS, shard_slots=first_map[0].capacity,
         gn_slice_rows=slices["gn_normal_eq"]["n"], insert_slice_rows=slices["segscan"]["n"],
-        first=res_1, second_scans_per_s=res_2["scans_per_s"],
+        step=first.step_reason, first=res_1,
+        graph=dict(scans_per_s=res_1["scans_per_s"], second_scans_per_s=res_2["scans_per_s"],
+                   warm_half_scans_per_s=res_1["warm_half_scans_per_s"],
+                   device_ms_per_scan_median=device_ms, graphs=captured, peak_mem_gib=peak_gib,
+                   device_syncs_per_scan=res_2["device_syncs_per_scan"],
+                   sync_sites_per_scan=res_2["sync_sites_per_scan"],
+                   launches=res_1["launches"]),
+        eager=dict(scans_per_s=res_e["scans_per_s"],
+                   warm_half_scans_per_s=res_e["warm_half_scans_per_s"],
+                   device_syncs_per_scan=res_e["device_syncs_per_scan"],
+                   sync_sites_per_scan=res_e["sync_sites_per_scan"],
+                   launches=res_e["launches"],
+                   launches_per_scan=profiled["launches_per_scan"],
+                   busy_ms_per_scan=profiled["busy_ms_per_scan"],
+                   idle_share=profiled["idle_share"]),
         single_device_scans_per_s=single.summary()["scans_per_sec"],
-        device_syncs_per_scan=res_2["device_syncs_per_scan"],
-        sync_sites_per_scan=res_2["sync_sites_per_scan"],
-        launches_per_scan=profiled["launches_per_scan"],
-        busy_ms_per_scan=profiled["busy_ms_per_scan"], idle_share=profiled["idle_share"],
         max_distance_from_single_device_m=apart_m,
         distinct_voxels={"sharded": voxels[0], "single": voxels[1]},
         point_mass={"sharded": mass[0], "single": mass[1]},
-        foreign_keys=foreign, twice_bit_equal=same_bits,
+        foreign_keys=foreign, graph_twice_bit_equal=twice_bits,
+        graph_equals_eager_bitwise=eager_bits,
     )
     print("sharded " + json.dumps(res))
     check(res_1["scans"] == len(seq.scans), f"the sharded driver processed {res_1['scans']} scans")
@@ -1467,8 +1569,12 @@ def sharded_phase(seq, kernels, single, slices):
     check(foreign == 0, f"{foreign} live keys lie in a block that does not own them")
     check(abs(voxels[0] - voxels[1]) <= 0.02 * voxels[1], f"distinct voxels diverged: {voxels}")
     check(abs(mass[0] - mass[1]) <= 0.02 * mass[1], f"point mass diverged: {mass}")
-    check(same_bits, "two runs of the sharded driver differ in their bits")
-    return first, res_1["launches"]
+    check(twice_bits, "two runs of the graphed sharded driver differ in their bits")
+    check(eager_bits, "the graphed and the eager sharded step differ in their bits")
+    check(res_2["device_syncs_per_scan"] <= MAX_STREAM_SYNCS_PER_SCAN,
+          f"the graphed sharded driver waited for the device {res_2['device_syncs_per_scan']:.2f} "
+          f"times a scan (at most {MAX_STREAM_SYNCS_PER_SCAN})")
+    return first, {"sharded": res_1["launches"], "sharded_eager": res_e["launches"]}, res
 
 
 def free_port() -> int:
@@ -1572,6 +1678,8 @@ def dist_phase(seq, sharded) -> dict:
         for i in range(2):
             check(f"distributed: process {i}/2" in outs[f"straight{i}"],
                   f"process {i} did not join a group of two")
+            check("scan step: eager: a gloo process group" in outs[f"straight{i}"],
+                  f"process {i} did not report its scan step as eager under gloo")
         wrote_1 = [n for n in os.listdir(tmp) if n.split(".")[0] in ("straight1", "head1", "resumed1")]
         check(not wrote_1, f"process 1 wrote {wrote_1}")
 
@@ -1579,7 +1687,7 @@ def dist_phase(seq, sharded) -> dict:
         positions = np.asarray(ps, np.float32)
         check(len(positions) == DIST_SCANS, f"{len(positions)} poses for {DIST_SCANS} scans")
         # the same four shards in one process, on the same file and config
-        one = ShardedOdometry(heavy_config(), n_devices=N_SHARDS)
+        one = ShardedOdometry(heavy_config(), n_devices=N_SHARDS)  # graphed: no group
         one.run(dataset.load_npz(path("all.npz")))
         apart_m = float(np.linalg.norm(positions - one.positions, axis=1).max())
         from_memory_m = float(np.linalg.norm(
@@ -1594,7 +1702,8 @@ def dist_phase(seq, sharded) -> dict:
             points = next(int(l.split()[1]) for l in f if l.startswith("POINTS"))
         res = dict(
             processes=2, shards=N_SHARDS, backend="gloo", scans=DIST_SCANS,
-            max_distance_from_one_process_m=apart_m,
+            step=next(l for l in outs["straight0"].splitlines() if l.startswith("scan step:")),
+            one_process_step=one.step_reason, max_distance_from_one_process_m=apart_m,
             max_distance_from_the_sharded_phase_m=from_memory_m,
             resumed_equals_straight=resumed_equal,
             distinct_voxels=voxels, pcd_points=points,
@@ -1636,6 +1745,8 @@ def staged_phase(seq, kernels, sharded) -> dict:
         backend = torch.distributed.get_backend()
         check(backend == "gloo", f"a process that shares its card took {backend}")
         odo = ShardedOdometry(stream_config(), n_devices=N_SHARDS)
+        check(not odo.graphed and "gloo" in odo.step_reason,
+              f"the sharded driver under a gloo group is not eager: {odo.step_reason}")
         dist.ALL_REDUCE.reset()
         run, _ = drive(lambda cb: odo.run(seq, max_scans=RERUN_SCANS, on_scan=cb), odo, kernels,
                        seq, n_shards=N_SHARDS, count_syncs=True)
@@ -1644,7 +1755,8 @@ def staged_phase(seq, kernels, sharded) -> dict:
         dist.shutdown(wait=False)
     same_bits = np.array_equal(odo.positions, sharded.positions[:RERUN_SCANS])
     res = dict(
-        backend=backend, world_size=1, scans=RERUN_SCANS, gn_iterations=run["gn_iterations"],
+        backend=backend, world_size=1, step=odo.step_reason, scans=RERUN_SCANS,
+        gn_iterations=run["gn_iterations"],
         all_reduce_calls=stats["calls"],
         all_reduce_ms_per_call=1e3 * stats["seconds"] / max(stats["calls"], 1),
         all_reduce_backend_ms_per_call=1e3 * stats["backend_seconds"] / max(stats["calls"], 1),
@@ -1657,7 +1769,7 @@ def staged_phase(seq, kernels, sharded) -> dict:
     check(stats["calls"] == run["gn_iterations"] + RERUN_SCANS,
           f"{stats['calls']} all-reduces for {run['gn_iterations']} GN iterations "
           f"and {RERUN_SCANS} scans")
-    check(same_bits, "a group of one process changed the trajectory")
+    check(same_bits, "a group of one process (eager) differs from the graphed run without one")
     return res
 
 
@@ -1683,11 +1795,51 @@ def nccl_phase(dev) -> dict:
         check(dist.ALL_REDUCE.calls == 1, "reduce_fn did not call the all-reduce once")
         check(torch.equal(out[0], JTJ) and torch.equal(out[1], JTr) and torch.equal(out[2], n),
               "a one-process all-reduce changed the normal equations")
-        res = dict(backend=backend, world_size=1, floats=43,
+        odo = sharded_map.ShardedOdometry(stream_config(), n_devices=N_SHARDS)
+        check(not odo.graphed and "nccl" in odo.step_reason,
+              f"the sharded driver under an nccl group is not eager: {odo.step_reason}")
+        res = dict(backend=backend, world_size=1, floats=43, step=odo.step_reason,
                    reduce_fn_ms=event_ms(lambda: reduce_fn(JTJ[None], JTr[None], n[None])))
     finally:
         dist.shutdown(wait=False)
     print("nccl " + json.dumps(res))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the graph stress test
+# ---------------------------------------------------------------------------
+
+# the stress test's two runs, each with both configs in one process: the
+# graph path's default set, and the eager loop (no graph) that met the
+# illegal address of kernel B's halo load (ROADMAP.md, queue 3)
+STRESS_RUNS = (("graph", ()), ("eager", ("--eager",)))
+STRESS_TIMEOUT_S = 300
+
+
+def graph_stress_phase() -> dict:
+    """`python -m eskf_lio_torch.utils.graph_stress` twice, each run the
+    small config's rounds and then HEAVY's in one process.  The default
+    set: fresh graphed steps, single-device and sharded, against the eager
+    steps bit for bit, with the graphs replayed out of capture order,
+    destroyed and recaptured, collected inside another capture, and
+    captured on either side of a growth of the capture scratch, all on one
+    thread.  `--eager`: the same loop with both steps of a pair eager, 40
+    small rounds then 6 at HEAVY."""
+    res = {}
+    for name, extra in STRESS_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "eskf_lio_torch.utils.graph_stress", *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=STRESS_TIMEOUT_S,
+        )
+        line = [l for l in proc.stdout.splitlines() if l.startswith("graph_stress ")]
+        check(proc.returncode == 0 and bool(line),
+              f"graph_stress {' '.join(extra)} exited {proc.returncode}: "
+              f"{(proc.stderr.strip().splitlines() or ['no output'])[-1][:300]}")
+        res[name] = {r["config"]: r for r in json.loads(line[-1].split(" ", 1)[1])["results"]}
+        res[name]["process_s"] = time.perf_counter() - t0
+    print("graph_stress " + json.dumps(res))
     return res
 
 
@@ -1738,6 +1890,7 @@ def main() -> int:
         # with the other kernel timings: torch.profiler's traces of single
         # kernels came back short after the replay's long trace
         slices = slice_kernel_phase(dev, config, scan0)
+        res_b["bounds"] = kernel_bounds_phase()
         from eskf_lio_torch.pipeline import replay
 
         if "--kernels-only" in sys.argv[1:]:
@@ -1754,10 +1907,12 @@ def main() -> int:
         by_path.update(launches)
         resume_phase(seq, straight, straight_map)
         by_path["cli"] = cli_phase(kernels)
-        sharded, by_path["sharded"] = sharded_phase(seq, kernels, straight, slices)
+        sharded, launches, sharded_res = sharded_phase(seq, kernels, straight, slices)
+        by_path.update(launches)
         dist_phase(seq, sharded)
         staged_phase(seq, kernels, sharded)
         nccl_phase(dev)
+        stress = graph_stress_phase()
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -1803,6 +1958,19 @@ def main() -> int:
             "graph_wall_ms_per_scan_back_to_back", "eager_busy_ms_per_scan",
             "graph_idle_share_row_by_row", "graphs", "peak_mem_gib",
             "device_syncs_in_rows_per_scan")},
+        # the sharded driver's captured step (D = 4, one process) beside its
+        # eager step, and the graph stress test's rounds
+        "sharded_graph_step": {
+            "graph": {k: sharded_res["graph"][k] for k in (
+                "scans_per_s", "warm_half_scans_per_s", "device_ms_per_scan_median", "graphs",
+                "peak_mem_gib", "device_syncs_per_scan")},
+            "eager": {k: sharded_res["eager"][k] for k in (
+                "scans_per_s", "device_syncs_per_scan", "busy_ms_per_scan", "idle_share")},
+            "bit_equal": sharded_res["graph_equals_eager_bitwise"],
+        },
+        "graph_stress": stress,
+        # kernel B over values that end a registered host range (phase 2)
+        "kernel_bounds": res_b["bounds"],
     }
     print(json.dumps(line))
     print(smi)

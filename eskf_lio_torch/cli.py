@@ -15,7 +15,8 @@ process all D shards lie on the one device; with `--coordinator HOST:PORT
 --num-processes P --process-id I` the same command runs as P processes (one
 per GPU; D / P shards each), every process reads the same input, and process
 0 writes the artifacts.  As in the JAX CLI, `--stream` and `--replay` run
-single-device and ignore `--devices`.
+single-device and ignore `--devices`.  The report says whether the scan
+step ran as a captured CUDA graph or eagerly, and why (`scan step: ...`).
 
 Usage:
     python -m eskf_lio_torch.cli --config config/hilti.yaml \
@@ -201,6 +202,7 @@ def _run(ap, args, n_procs: int, proc_id: int) -> int:
         print(f"throughput = {summary['scans_per_sec']:.1f} scans/s "
               f"(streaming, threaded ingest)")
         print(f"map voxels = {summary['map_voxels']}")
+        print(f"scan step: {odo.step_reason}")
         if args.checkpoint_out:
             from eskf_lio_torch.utils import checkpoint
 
@@ -229,6 +231,7 @@ def _run(ap, args, n_procs: int, proc_id: int) -> int:
         print(f"step max elapsed time = {summary['max_step_ms']:.2f} ms")
         print(f"throughput = {summary['scans_per_sec']:.1f} scans/s")
         print(f"map voxels = {summary['map_voxels']}")
+        print(f"scan step: {odo.step_reason}")
         if n_procs > 1:
             from eskf_lio_torch.parallel.distributed import ALL_REDUCE
 

@@ -97,12 +97,12 @@ int graph_cond_add_node(void* stream, unsigned long long handle, int kind, void*
     return cudaSuccess;
 }
 
-// Begin capturing `stream` into the body graph `body` (global capture mode,
-// as PyTorch's own captures).
+// Begin capturing `stream` into the body graph `body` in thread-local capture
+// mode, as the step's own capture (utils/graphs.py).
 int graph_cond_begin_body(void* stream, void* body) {
     return cudaStreamBeginCaptureToGraph(
         static_cast<cudaStream_t>(stream), static_cast<cudaGraph_t>(body),
-        nullptr, nullptr, 0, cudaStreamCaptureModeGlobal);
+        nullptr, nullptr, 0, cudaStreamCaptureModeThreadLocal);
 }
 
 // End the body capture begun by graph_cond_begin_body; the number of

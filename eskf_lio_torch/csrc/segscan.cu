@@ -136,7 +136,16 @@ seg_suffix_scan(const int* __restrict__ skey, const float* __restrict__ vals,
   const long base = static_cast<long>(t) * TR;
   const int len = min(TR, static_cast<int>(n - base));
   const bool full = aligned && len == TR;
-  const int halo_rows = max(0, min(kHalo, static_cast<int>(n - base - TR)));
+  // rows of the array after this tile (0 for the last tile), and the halo's
+  // share of them.  The halo's 16-byte loads are taken on `rows_after`
+  // itself, not on the clamped `halo_rows`: the last tile of an N that is a
+  // multiple of TR must load no row past the end of `vals` (an illegal
+  // address where it ends a mapped range), and nvcc 12.9's code for
+  // `halo_rows == kHalo` took that branch there
+  const long rows_after = static_cast<long>(n) - (base + TR);
+  const bool full_halo = aligned && rows_after >= kHalo;
+  const int halo_rows =
+      rows_after >= kHalo ? kHalo : rows_after > 0 ? static_cast<int>(rows_after) : 0;
 
   // the tile's last key, and whether its run goes on into the next tile
   const int k_last = skey[base + len - 1];
@@ -176,7 +185,7 @@ seg_suffix_scan(const int* __restrict__ skey, const float* __restrict__ vals,
     const long g = base + TR + lane;
     if (lane < halo_rows) key_h = skey[g];
     const float* src = vals + (base + TR) * W;
-    if (aligned && halo_rows == kHalo) {
+    if (full_halo) {
       const float4* src4 = reinterpret_cast<const float4*>(src);
       const int total = kHalo * W / 4;
       float4 buf[kHaloLoads];

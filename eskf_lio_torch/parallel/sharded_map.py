@@ -55,6 +55,7 @@ from eskf_lio_torch.parallel import distributed as dist
 from eskf_lio_torch.parallel.distributed import ShardMesh
 from eskf_lio_torch.pipeline import odometry as odo
 from eskf_lio_torch.types import FilterState, ImuChunk, ProcessedScan, Scan
+from eskf_lio_torch.utils.graphs import assign
 
 # VoxelMap fields that are replicated (not sharded): only the packing origin
 _REPL_FIELDS = ("origin",)
@@ -378,6 +379,83 @@ def make_sharded_init_step(config: Config, mesh: ShardMesh):
     return init_step
 
 
+# the sharded step's diagnostics, in the order of its captured vector
+SHARDED_DIAG_KEYS = (
+    "icp_iterations", "icp_converged", "num_correspondences", "inserted",
+    "dropped_points", "removed_voxels", "num_scan_points", "pose_finite",
+    "gn_slice_overflow", "insert_slice_overflow",
+)
+
+
+class GraphedShardedScanStep(odo.GraphedScanStep):
+    """The sharded step of one process on a CUDA device, captured: the
+    counterpart of the JAX package's `jax.jit(shard_map(body))`
+    (`eskf_lio_tpu/parallel/sharded_map.py:312-321`).  `make_sharded_scan_step`
+    over static buffers — the inputs, the filter state, `prev_R` / `prev_t`,
+    the diagnostics and each of the process's map blocks — in one graph with
+    the eviction and one without, sharing a pool, chosen by the host-known
+    `do_evict`.  Inside a graph the GN loop over every shard's slice is ONE
+    WHILE node (the shard sum is the local pairwise `reduce_fn`) and each
+    shard's `insert` fold its pair of IF nodes.
+
+    Only without a process group: there `all_reduce_sum` is the identity.
+    `ShardedOdometry` decides by `graph_choice`.
+
+    A call returns a NEW `ShardedVoxelMap` over the static blocks: a map
+    caches its gathered arrays, and the blocks change under it with every
+    call, so a map returned earlier must not be read after a later call
+    (clone its blocks to keep it)."""
+
+    diag_keys = SHARDED_DIAG_KEYS
+
+    def __init__(self, config: Config, mesh: ShardMesh):
+        if dist.is_initialized():
+            raise RuntimeError(
+                "the sharded step is captured only without a process group "
+                "(graph_choice): its sums would cross the group inside the graph"
+            )
+        self.mesh = mesh
+        super().__init__(config, mesh.device)
+
+    def _make_core(self, config: Config, dev):
+        return make_sharded_scan_step(config, self.mesh)
+
+    def _make_map(self, config: Config, dev) -> None:
+        whole = vm.VoxelMap.create(config.hash_capacity, config.map_delta_capacity, device=dev)
+        self.blocks = ShardedVoxelMap.from_whole(whole, self.mesh).blocks
+
+    def _run(self, do_evict: bool):
+        return self.core(
+            self.state, ShardedVoxelMap(self.blocks, self.mesh), self.prev_R, self.prev_t,
+            self.chunk, self.scan, do_evict,
+        )
+
+    def _assign_map(self, voxmap: ShardedVoxelMap) -> None:
+        for mine, theirs in zip(self.blocks, voxmap.blocks, strict=True):
+            assign(mine, theirs)
+
+    def _map(self) -> ShardedVoxelMap:
+        return ShardedVoxelMap(self.blocks, self.mesh)
+
+
+def graph_choice(device: torch.device) -> tuple[bool, str]:
+    """Whether `ShardedOdometry`'s scan step on `device` is a captured graph,
+    and one line that says why.  The rule reads the device and the process
+    group, nothing else: with a group the shard sum crosses it (under `gloo`
+    staged through the host, which a graph cannot hold; under `nccl` a
+    capture of the collective is not built yet), so the step stays eager."""
+    if dist.is_initialized():
+        backend = torch.distributed.get_backend()
+        why = ("its all-reduce is staged through the host, which a graph cannot hold"
+               if backend == "gloo" else
+               "capturing its all-reduce inside the GN loop is not built yet")
+        return False, f"eager: a {backend} process group is initialised and {why}"
+    if device.type != "cuda":
+        return False, f"eager: the step runs on the {device.type}"
+    return True, ("graph: one process holds every shard on its card, so the shard sum "
+                  "is local and the step is captured")
+
+
 class ShardedOdometry(odo.Odometry):
     """Drop-in sharded variant of the host driver: same interface, the map
     in `n_devices` owner-hashed shards.
@@ -406,8 +484,13 @@ class ShardedOdometry(odo.Odometry):
         super().__init__(config, init_state=init_state, device=self.mesh.device)
 
     def _make_steps(self):
-        """The sharded steps (eager: their sums cross the process group)."""
-        return (make_sharded_scan_step(self.config, self.mesh),
+        """The sharded steps: the scan step a `GraphedShardedScanStep` or
+        eager, by `graph_choice` (`graphed`, `step_reason`); the init step
+        eager, as the single-device one is."""
+        self.graphed, self.step_reason = graph_choice(self.device)
+        scan_step = (GraphedShardedScanStep(self.config, self.mesh) if self.graphed
+                     else make_sharded_scan_step(self.config, self.mesh))
+        return (scan_step,
                 make_sharded_init_step(self.config, self.mesh),
                 odo.make_predict_only(self.config, self.device))
 

@@ -58,9 +58,9 @@ DIAG_KEYS = (
 DIAG_FLAGS = ("icp_converged", "inserted", "pose_finite")
 
 
-def diag_vector(diag: dict) -> torch.Tensor:
-    """The step's diagnostics as one int64 vector in `DIAG_KEYS` order."""
-    return torch.stack([diag[k].to(torch.int64) for k in DIAG_KEYS])
+def diag_vector(diag: dict, keys=DIAG_KEYS) -> torch.Tensor:
+    """The step's diagnostics as one int64 vector in `keys` order."""
+    return torch.stack([diag[k].to(torch.int64) for k in keys])
 
 
 def lidar_extrinsics(config: Config, device="cuda", dtype=torch.float32) -> Pose:
@@ -183,22 +183,27 @@ class GraphedScanStep:
     it, replays, and returns the static buffers themselves: state, map and
     pose are overwritten by the next call, so a caller that keeps them
     clones them.  `diag` holds views of one int64 vector (`diag_vec`, in
-    `DIAG_KEYS` order)."""
+    `diag_keys` order).
+
+    A subclass captures another step of the same signature over other map
+    buffers (`parallel/sharded_map.py::GraphedShardedScanStep`): it sets
+    `diag_keys` and overrides `_make_core`, `_make_map`, `_run`,
+    `_assign_map` and `_map`."""
+
+    diag_keys = DIAG_KEYS
 
     def __init__(self, config: Config, device):
         dev = device_policy.resolve(device)
         self.config = config
-        self.core = make_step_core(config, dev)
+        self.core = self._make_core(config, dev)
+        self._make_map(config, dev)
         self.chunk = _chunk_buffer(config, dev)
         self.scan = _scan_buffer(config, dev)
         self.state = eskf.init_state(config, dev)
-        self.voxmap = vm.VoxelMap.create(
-            config.hash_capacity, config.map_delta_capacity, device=dev
-        )
         self.prev_R = torch.eye(3, device=dev)
         self.prev_t = torch.zeros(3, device=dev)
-        self.diag_vec = torch.zeros(len(DIAG_KEYS), dtype=torch.int64, device=dev)
-        self.diag = {k: self.diag_vec[i] for i, k in enumerate(DIAG_KEYS)}
+        self.diag_vec = torch.zeros(len(self.diag_keys), dtype=torch.int64, device=dev)
+        self.diag = {k: self.diag_vec[i] for i, k in enumerate(self.diag_keys)}
         pool = torch.cuda.graph_pool_handle()
         # the graphs hold this step weakly: no reference cycle, so the graphs
         # are destroyed with the step, never by a later garbage collection
@@ -210,23 +215,47 @@ class GraphedScanStep:
             for evict in (False, True)
         }
 
-    def _step(self, do_evict: bool) -> None:
+    def _make_core(self, config: Config, dev) -> Callable:
+        """The step function that is captured."""
+        return make_step_core(config, dev)
+
+    def _make_map(self, config: Config, dev) -> None:
+        """The static map buffers."""
+        self.voxmap = vm.VoxelMap.create(
+            config.hash_capacity, config.map_delta_capacity, device=dev
+        )
+
+    def _run(self, do_evict: bool):
+        """The step over the static buffers: (state, voxmap, R, t, diag)."""
         (state, voxmap, R, t), diag = self.core(
             (self.state, self.voxmap, self.prev_R, self.prev_t),
             (self.chunk, self.scan, do_evict),
         )
-        assign(self.state, state)
+        return state, voxmap, R, t, diag
+
+    def _assign_map(self, voxmap) -> None:
+        """Copy a map into the static map buffers (each field that is not
+        already its buffer)."""
         assign(self.voxmap, voxmap)
+
+    def _map(self):
+        """The map a call returns: the static buffers."""
+        return self.voxmap
+
+    def _step(self, do_evict: bool) -> None:
+        state, voxmap, R, t, diag = self._run(do_evict)
+        assign(self.state, state)
+        self._assign_map(voxmap)
         assign((self.prev_R, self.prev_t), (R, t))
-        self.diag_vec.copy_(diag_vector(diag))
+        self.diag_vec.copy_(diag_vector(diag, self.diag_keys))
 
     def __call__(self, state, voxmap, prev_R, prev_t, chunk: ImuChunk, scan: Scan, do_evict):
         assign(self.state, state)
-        assign(self.voxmap, voxmap)
+        self._assign_map(voxmap)
         assign((self.prev_R, self.prev_t, *self.chunk, *self.scan),
                 (prev_R, prev_t, *chunk, *scan))
         self.graphs[bool(do_evict) and self.config.remove_distant_points]()
-        return self.state, self.voxmap, self.prev_R, self.prev_t, self.diag
+        return self.state, self._map(), self.prev_R, self.prev_t, self.diag
 
 
 def make_scan_step(config: Config, device="cuda") -> Callable:
@@ -367,7 +396,8 @@ class Odometry:
     `GraphedScanStep` (no host read inside it) and the uploads go from
     page-locked buffers into fixed device buffers (the graphed step's static
     inputs), without waiting; on the CPU the step's own host branches (one
-    per GN iteration, one in `insert`) are not in `device_reads`."""
+    per GN iteration, one in `insert`) are not in `device_reads`.
+    `graphed` and `step_reason` say which of the two the scan step is."""
 
     def __init__(self, config: Config, init_state: FilterState | None = None,
                  device="cuda"):
@@ -384,13 +414,14 @@ class Odometry:
         self.prev_t = torch.zeros(3, device=self.device)
         self.scan_step, self.init_step, self.predict_only = self._make_steps()
         # on the card the uploads land in fixed input buffers: a graphed
-        # step's own, or buffers of the driver's (each step's reads of them
-        # are ordered on the stream before the next upload's copies)
+        # step's own (single-device or sharded: both are `GraphedScanStep`s),
+        # or buffers of the driver's (each step's reads of them are ordered
+        # on the stream before the next upload's copies)
         self._staging = None
         if self.device.type == "cuda":
-            graphed = isinstance(self.scan_step, GraphedScanStep)
-            chunk = self.scan_step.chunk if graphed else _chunk_buffer(config, self.device)
-            scan = self.scan_step.scan if graphed else _scan_buffer(config, self.device)
+            own = isinstance(self.scan_step, GraphedScanStep)
+            chunk = self.scan_step.chunk if own else _chunk_buffer(config, self.device)
+            scan = self.scan_step.scan if own else _scan_buffer(config, self.device)
             self._staging = (_PinnedUploads(list(chunk)), _PinnedUploads(list(scan)))
 
         self.initialized = False
@@ -414,7 +445,14 @@ class Odometry:
         self.zero_corr_limit = 10
 
     def _make_steps(self):
-        """(scan step, init step, predict-only step) of this driver."""
+        """(scan step, init step, predict-only step) of this driver.  Sets
+        `graphed` (whether the scan step is a captured graph) and
+        `step_reason`, one line that says why."""
+        self.graphed = self.device.type == "cuda"
+        self.step_reason = (
+            "graph: on a CUDA device the scan step is captured" if self.graphed
+            else f"eager: the step runs on the {self.device.type}"
+        )
         return (make_scan_step(self.config, self.device),
                 make_init_step(self.config, self.device),
                 make_predict_only(self.config, self.device))

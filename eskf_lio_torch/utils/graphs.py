@@ -27,6 +27,14 @@ before any capture: a capture allocates nothing that outlives the graph.
   read, which lets a CPU test show that the captured path reads nothing
   back (a WHILE loop runs its body `max_iterations` times, each guarded).
 
+Captures run in CUDA's thread-local capture mode: a call that could break
+a capture (a host read, an allocation of a new segment) fails on the
+capturing thread, while other threads may make such calls meanwhile, but
+none may synchronize the device (CUDA refuses it in every mode).  The body
+streams and pools, the capture stream and the kernels' capture scratch are
+one per device, shared by every graph: graphs are captured one at a time and
+replayed one at a time, on one thread as the port's drivers do.
+
 Branch bodies have no side effects outside the values they return.  Under
 capture those values are copied into `outs`, buffers the caller keeps for
 the rest of the capture; eagerly and in select mode `outs` is only the value
@@ -73,6 +81,14 @@ _LOCAL = threading.local()
 # stream that captures steps
 _BODIES: dict[tuple[int, int], tuple[torch.cuda.Stream, tuple]] = {}
 _CAPTURE_STREAMS: dict[int, torch.cuda.Stream] = {}
+# captures under way on any thread, and the graphs whose `StepGraph` was
+# collected meanwhile: destroying a CUDA graph inside a capture is refused
+# (cudaGraphExecDestroy: "operation not permitted when stream is capturing")
+# and breaks that capture, after its memory pool was already released, so
+# such a graph is kept until no capture runs
+_CAPTURES = {"under_way": 0, "parked": 0}  # parked: graphs ever kept so
+_PARKED: list = []
+_CAPTURES_LOCK = threading.RLock()  # a collection may run while it is held
 
 
 @contextlib.contextmanager
@@ -270,9 +286,25 @@ class StepGraph:
         t0 = time.perf_counter()
         _LOCAL.nodes = 0
         top = _SIZE()
-        with torch.cuda.graph(graph, pool=self.pool, stream=stream):
-            self.fn()
-            GRAPH_COND.call("graph_cond_captured_nodes", stream.cuda_stream, ctypes.byref(top))
+        with _CAPTURES_LOCK:
+            _CAPTURES["under_way"] += 1
+        try:
+            # thread-local mode: a capture forbids calls that could break it
+            # on its own thread only, so another thread (a driver's caller, a
+            # viewer) may read values back meanwhile; in the global mode such
+            # a read fails ("operation not permitted when stream is capturing")
+            with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.fn()
+                GRAPH_COND.call("graph_cond_captured_nodes", stream.cuda_stream,
+                                ctypes.byref(top))
+        finally:
+            with _CAPTURES_LOCK:
+                _CAPTURES["under_way"] -= 1
+                parked = _PARKED[:] if _CAPTURES["under_way"] == 0 else []
+                if parked:
+                    _PARKED.clear()
+            del parked  # destroyed here, outside any capture
         self.capture_s = time.perf_counter() - t0
         self.nodes = top.value + _LOCAL.nodes
         self.graph = graph
@@ -281,3 +313,14 @@ class StepGraph:
         if self.graph is None:
             self.capture()
         self.graph.replay()
+
+    def __del__(self, _lock=_CAPTURES_LOCK, _captures=_CAPTURES, _parked=_PARKED) -> None:
+        # collected inside a capture (a garbage collection may run at any
+        # allocation of the capturing thread): keep the graph until it ends.
+        # (The module's globals are bound as defaults: at interpreter exit
+        # they may be gone before the last graphs.)
+        if self.graph is not None:
+            with _lock:
+                if _captures["under_way"]:
+                    _parked.append(self.graph)
+                    _captures["parked"] += 1

@@ -134,7 +134,8 @@ def test_cli_sharded_run_reports_as_the_jax_cli(tmp_path):
                    "--traj-out", out_traj)
     assert proc.returncode == 0, proc.stderr[-2000:]
     for line in ("step average elapsed time = ", "step max elapsed time = ",
-                 "throughput = ", "map voxels = ", f"saved {out_pcd}", f"saved {out_traj}"):
+                 "throughput = ", "map voxels = ", f"saved {out_pcd}", f"saved {out_traj}",
+                 "scan step: eager: the step runs on the cpu"):
         assert line in proc.stdout
     assert len(export.read_trajectory_json(out_traj)[0]) == 14
     assert pcd_points(out_pcd) == len(export.read_pcd(out_pcd)) > 1000

@@ -4,7 +4,8 @@ map's `insert` through kernel B (the same bits twice; the CPU's words), and
 the streaming driver's launch counts, the sharded driver (both kernels
 at a shard's slice shapes; four shards on the one card, twice, bit for bit),
 and the captured step: conditional nodes against Python control flow, the
-graphed replay against the eager step bit for bit.
+graphed replay and the graphed sharded driver against the eager step bit for
+bit, and short rounds of the graph stress test (`utils/graph_stress.py`).
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -191,6 +192,31 @@ def test_segscan_kernel_takes_an_unaligned_view(dev):
     out = segscan.segsum_sorted(keys[1:], vals[1:])
     assert vals[1:].data_ptr() % 16 != 0
     assert torch.equal(out, segscan.segsum_sorted(keys[1:].clone(), vals[1:].clone()))
+
+
+def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(dev):
+    """`python -m eskf_lio_torch.utils.kernel_bounds`: kernel B over values
+    in host memory registered for the device up to their last byte, at N a
+    multiple of the tile rows, in a process of its own (a fault ends its
+    CUDA context).  The last tile of such an N has no row after it, and its
+    halo warp loaded 32 (its 16-byte path): an illegal address there, and
+    in device memory where the values end a mapped range, the eager sharded
+    step's fault after long runs (ROADMAP.md, queue 3)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-m", "eskf_lio_torch.utils.kernel_bounds"],
+                          cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")][-1]
+    shapes = json.loads(line.split(" ", 1)[1])["shapes"]
+    assert len(shapes) == 5
+    # tolerance: relative to the sum of absolute values, which is at most the
+    # longest run's length (values in [0, 1), a key run over 40 % of the rows)
+    assert all(s["max_abs_err"] <= TOL * 0.4 * s["n"] for s in shapes)
 
 
 def test_segscan_kernel_all_unique_is_identity(dev):
@@ -413,3 +439,149 @@ def test_graphed_scan_step_equals_the_eager_step_on_the_card(dev):
         assert int(diag["icp_iterations"]) == int(g_diags["icp_iterations"][b])
     for x, y in zip(carry[1], g_carry[1]):
         assert torch.equal(x, y)
+
+
+def test_graphed_sharded_step_equals_the_eager_step_on_the_card(dev):
+    """`ShardedOdometry(n_devices=4)` without a process group runs the
+    captured sharded step: over 6 scans the same bits as the same driver on
+    the eager sharded step, kernel A launched 4 x Σ GN iterations and kernel
+    B 5 x scans, counted on the device inside the graphs; the map read after
+    scan k is the map of scan k."""
+    from eskf_lio_torch.parallel import sharded_map as smod
+
+    cfg = Config(
+        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), translation_noise=1e-4,
+        rotation_noise=3e-5, max_raw_points=8192, max_scan_points=4096,
+        max_imu_per_scan=48, hash_capacity_log2=16, remove_period=0.2,
+        remove_distance_threshold=8.0,
+    )
+    seq = dataset.make_synthetic_sequence(duration=1.0, points_per_scan=8000, seed=7)
+    runs, maps = {}, {}
+    for mode in ("graph", "eager"):
+        odo = smod.ShardedOdometry(cfg, n_devices=4)
+        assert odo.graphed and odo.step_reason.startswith("graph")
+        assert isinstance(odo.scan_step, smod.GraphedShardedScanStep)
+        if mode == "eager":
+            odo.scan_step = smod.make_sharded_scan_step(cfg, odo.mesh)
+        maps[mode] = []
+        for k in (gn.KERNEL, segscan.KERNEL):
+            k.reset_launches()
+        summary = odo.run(seq, max_scans=6, on_scan=lambda o, m=maps[mode]: m.append(
+            [x.clone() for x in o.voxmap.gather()]))
+        assert summary["num_scans"] == 6 and not summary["diverged"]
+        iters = sum(int(d["icp_iterations"]) for d in odo.diags)
+        assert gn.KERNEL.launch_count() == 4 * iters > 0
+        assert segscan.KERNEL.launch_count() == (1 + 4) * 6
+        assert any(int(d["removed_voxels"]) > 0 for d in odo.diags)
+        runs[mode] = odo
+    graph, eager = runs["graph"], runs["eager"]
+    assert np.array_equal(graph.positions, eager.positions)
+    assert np.array_equal(np.stack(graph.trajectory_R), np.stack(eager.trajectory_R))
+    for a, b in zip(graph.diags, eager.diags):
+        assert {k: int(v) for k, v in a.items()} == {k: int(v) for k, v in b.items()}
+    for k, (a, b) in enumerate(zip(maps["graph"], maps["eager"])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"the map after scan {k + 1}"
+    assert not all(torch.equal(x, y) for x, y in zip(maps["graph"][-2], maps["graph"][-1]))
+
+
+def test_a_capture_leaves_other_threads_free_to_read_values(dev):
+    """A graph captured on one thread, held at its top level, while this
+    thread launches a kernel, reads a value back and allocates a new
+    segment.  In the global capture mode the read and the allocation failed
+    ("operation not permitted when stream is capturing") and broke the other
+    thread's capture; captures are thread-local now, so all three go on, and
+    the graph then replays the eager values."""
+    import threading
+
+    x = torch.arange(1000.0, device=dev)
+    out = torch.zeros(1000, device=dev)
+    inside, release, failed = threading.Event(), threading.Event(), []
+
+    def step():
+        inside.set()
+        release.wait(60)
+        out.copy_(x * 2 + 1)
+
+    graph = graphs.StepGraph(step, dev, segscan_rows=1024)
+
+    def capture():
+        try:
+            graph.capture()
+        except BaseException as exc:  # raised below, on the test's thread
+            failed.append(exc)
+        finally:
+            inside.set()
+
+    thread = threading.Thread(target=capture)
+    thread.start()
+    inside.wait(60)
+    try:
+        y = torch.arange(10.0, device=dev) * 3
+        read = float(y.sum())
+        fresh_sum = float(torch.ones(1 << 26, device=dev).sum())
+    finally:
+        release.set()
+        thread.join(60)
+    if failed:
+        raise failed[0]
+    assert read == 135.0 and fresh_sum == float(1 << 26)
+    graph()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 2 + 1)
+
+
+def test_a_graph_collected_inside_another_capture_outlives_it(dev):
+    """A captured `StepGraph` left in a reference cycle whose last outside
+    reference goes, and is collected, inside another graph's capture.
+    Destroying a CUDA graph there was refused ("operation not permitted when
+    stream is capturing", after its pool was released) and broke that
+    capture (`utils/graph_stress.py`'s gc_in_capture mechanism, on the card);
+    now it is kept until the capture ends and destroyed then."""
+    import gc
+
+    x = torch.arange(1000.0, device=dev)
+    out = torch.zeros(1000, device=dev)
+    old = graphs.StepGraph(lambda: out.copy_(x + 1), dev, segscan_rows=1024)
+    old()
+    loop = [old]
+    loop.append(loop)
+    held = [loop]
+    del old, loop
+    parked = graphs._CAPTURES["parked"]
+
+    def step():
+        held.clear()
+        gc.collect()
+        out.copy_(x * 3)
+
+    new = graphs.StepGraph(step, dev, segscan_rows=1024)
+    new()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 3)
+    assert graphs._CAPTURES["parked"] == parked + 1 and not graphs._PARKED
+    out.zero_()
+    new()
+    torch.cuda.synchronize()
+    assert torch.equal(out, x * 3)
+
+
+def test_graph_stress_rounds_on_the_card(dev):
+    """Three short rounds of `python -m eskf_lio_torch.utils.graph_stress` at
+    the small config, in a process of its own (as `chip_smoke.py` runs it):
+    every mechanism of the default set, graph = eager bit for bit."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "eskf_lio_torch.utils.graph_stress", "--config", "small",
+         "--rounds", "3", "--scans", "4"],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [l for l in proc.stdout.splitlines() if l.startswith("graph_stress ")][-1]
+    res = json.loads(line.split(" ", 1)[1])["results"][0]
+    assert res["rounds"] == 3 and res["scans_compared"] == 3 * 2 * 4
+    # round 1 grows the capture scratch once for each of its two steps
+    assert res["retired_scratch_buffers"] == 2

@@ -245,3 +245,28 @@ def test_predict_covariance_does_not_depend_on_the_thread_count():
     finally:
         torch.set_num_threads(before)
     assert all(torch.equal(results[0], r) for r in results[1:])
+
+
+def test_graph_stress_eager_loop_runs_on_the_cpu(monkeypatch):
+    """`utils/graph_stress.py`'s loop with both steps eager (`--eager`),
+    two short rounds on the CPU (its synchronize a no-op here): every scan
+    of both steps runs, single-device and sharded; and two eager runs of
+    each step over the same scans give the same bits by its `differing`."""
+    from eskf_lio_torch.utils import graph_stress as gs
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    dev = torch.device("cpu")
+    res = gs.stress("small", 2, 2, dev, graphed=False)
+    assert res["scans_run"] == 2 * 2 * 2 and res["scans_compared"] == 0
+    config = gs.make_config("small")
+    inp = gs.prepare_inputs(config, gs.make_sequence("small", 2), dev, 2)
+    for sharded in (False, True):
+        runs = []
+        for _ in range(2):
+            carry, core = gs.start(config, dev, inp, sharded)
+            for b, evict in enumerate(gs.evict_flags(2, first=True)):
+                out = core(*carry, inp.chunks[b], inp.scans[b], evict)
+                carry = list(out[:4])
+            runs.append(gs.flat(out, gs.step_keys(sharded)))
+        assert gs.differing(*runs) == []
+        assert len(runs[0]) > 10

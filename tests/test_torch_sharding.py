@@ -16,10 +16,15 @@ Tolerances, each stated where it is used:
 * trajectories of the two packages: 1e-2 m over 12 scans, the bound of
   `tests/test_torch_replay.py` for the same f32 recursion computed two ways;
 * sharded against single device and D = 2 against D = 8: 2e-2 m, the bound
-  of `tests/test_sharding.py` (another order of the same sums).
+  of `tests/test_sharding.py` (another order of the same sums);
+* the captured sharded step (`GraphedShardedScanStep`), its function run on
+  the CPU as a replay would run it: equal bit for bit to the eager sharded
+  step (the same ops; select mode only merges the untaken side away).
 """
 
+import contextlib
 import dataclasses
+import socket
 
 import numpy as np
 import pytest
@@ -33,12 +38,15 @@ from eskf_lio_torch.io import export as t_export
 from eskf_lio_torch.map import voxel_map as t_vm
 from eskf_lio_torch.models import registration as t_reg
 from eskf_lio_torch.ops import voxel as t_vx
+from eskf_lio_torch.parallel import distributed as t_dist
 from eskf_lio_torch.parallel import sharded_map as t_smod
 from eskf_lio_torch.parallel.distributed import ShardMesh
 from eskf_lio_torch.parallel.sharded_map import ShardedOdometry as TSharded
+from eskf_lio_torch.pipeline import odometry as t_odo
 from eskf_lio_torch.pipeline.odometry import Odometry as TOdometry
 from eskf_lio_torch.types import ProcessedScan as TProcessed
 from eskf_lio_torch.utils import checkpoint as t_checkpoint
+from eskf_lio_torch.utils import graphs
 from eskf_lio_torch.utils.metrics import ate_rmse
 from eskf_lio_tpu.config import Config as JConfig, ImuConfig as JImu
 from eskf_lio_tpu.io import export as j_export
@@ -46,6 +54,7 @@ from eskf_lio_tpu.ops import voxel as j_vx
 from eskf_lio_tpu.parallel import sharded_map as j_smod
 from eskf_lio_tpu.parallel.sharded_map import ShardedOdometry as JSharded
 from eskf_lio_tpu.utils import checkpoint as j_checkpoint
+from test_torch_graphs import NoHostRead
 
 torch.set_num_threads(2)
 
@@ -448,7 +457,6 @@ def align_inputs(seq):
     """A processed scan and the map it aligns against, after 4 scans."""
     from eskf_lio_torch.models import eskf
     from eskf_lio_torch.ops import preprocess
-    from eskf_lio_torch.pipeline import odometry as t_odo
 
     odo = TOdometry(TCFG, device="cpu")
     odo.run(seq, max_scans=4)
@@ -609,3 +617,134 @@ def test_sharded_odometry_defaults_to_the_card():
         pytest.skip("this host has CUDA: the default device works")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TSharded(TCFG, n_devices=2)
+
+
+# ---------------------------------------------------------------------------
+# the captured sharded step, its function run on the CPU
+# ---------------------------------------------------------------------------
+
+
+def graphed_on_cpu(config, n_devices: int, monkeypatch, no_read: bool = True) -> TSharded:
+    """A sharded driver whose scan step is a `GraphedShardedScanStep` over
+    CPU buffers, each of its graphs a stand-in for `StepGraph` whose replay
+    calls the function the graph would capture: with `no_read`, in select
+    mode (every branch and loop pass run, merged by `torch.where`) under
+    `NoHostRead`, which fails on any read of a device value."""
+
+    class Uncaptured:
+        def __init__(self, fn, device, segscan_rows, pool=None):
+            self.fn = fn
+
+        def __call__(self):
+            if no_read:
+                with graphs.select_branches(), NoHostRead():
+                    self.fn()
+            else:
+                self.fn()
+
+    monkeypatch.setattr(t_odo, "StepGraph", Uncaptured)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    odo = TSharded(config, n_devices=n_devices, device="cpu")
+    assert not odo.graphed and odo.step_reason == "eager: the step runs on the cpu"
+    odo.scan_step = t_smod.GraphedShardedScanStep(config, odo.mesh)
+    return odo
+
+
+def assert_same_runs(a, b):
+    np.testing.assert_array_equal(a.positions, b.positions)
+    np.testing.assert_array_equal(np.stack(a.trajectory_R), np.stack(b.trajectory_R))
+    assert [{k: int(v) for k, v in d.items()} for d in a.diags] == [
+        {k: int(v) for k, v in d.items()} for d in b.diags
+    ]
+    for name, x, y in zip(t_vm.VoxelMap._fields, a.voxmap, b.voxmap):
+        assert torch.equal(x, y), name
+
+
+def test_graphed_sharded_step_reads_nothing_and_matches_eager_and_jax(seq, jax_d4, monkeypatch):
+    """D = 4: the captured step's function, in select mode under
+    `NoHostRead`, over the JAX fixture's four scans: it reads nothing back,
+    equals the eager sharded step bit for bit and the JAX `ShardedOdometry`
+    within 1e-2 m (the trajectories' bound above)."""
+    j, _ = jax_d4
+    graphed = graphed_on_cpu(TCFG, 4, monkeypatch)
+    graphed.run(seq, max_scans=4)
+    eager = TSharded(TCFG, n_devices=4, device="cpu")
+    eager.run(seq, max_scans=4)
+    assert_same_runs(graphed, eager)
+    np.testing.assert_allclose(graphed.positions, j.positions, atol=1e-2)
+    assert [bool(d["icp_converged"]) for d in graphed.diags] == [
+        bool(d["icp_converged"]) for d in j.diags
+    ]
+
+
+def test_graphed_sharded_step_folds_and_evicts_like_the_eager_step(seq, monkeypatch):
+    """D = 4 with every scan inserted, the delta tiers folding and an
+    eviction every other scan: both graphs of the step (with and without
+    eviction), select mode under `NoHostRead`, equal to the eager step bit
+    for bit."""
+    cfg = dataclasses.replace(TCFG, map_update_translation_sq_threshold=0.0,
+                              remove_period=0.15, remove_distance_threshold=8.0,
+                              icp_max_iterations=12)
+    folds = []
+
+    def delta_fill(o):
+        folds.append([int((b.d_skey != INT32_MAX).sum()) for b in o.voxmap.blocks])
+
+    graphed = graphed_on_cpu(cfg, 4, monkeypatch)
+    graphed.run(seq, max_scans=6)
+    eager = TSharded(cfg, n_devices=4, device="cpu")
+    eager.run(seq, max_scans=6, on_scan=delta_fill)
+    assert_same_runs(graphed, eager)
+    assert sum(int(d["removed_voxels"]) > 0 for d in eager.diags) >= 2
+    # a block whose delta tier emptied after it held rows has folded
+    assert any(b == 0 < a for prev, now in zip(folds, folds[1:]) for a, b in zip(prev, now))
+
+
+def test_map_read_after_scan_k_is_the_map_of_scan_k(seq, monkeypatch):
+    """The captured step writes its map blocks in place, and a
+    `ShardedVoxelMap` keeps its gathered arrays once read: the driver's map,
+    read (gathered) after every scan, must be that scan's map, as the eager
+    step's is — never the gathered arrays of an earlier scan."""
+    cfg = dataclasses.replace(TCFG, map_update_translation_sq_threshold=0.0)
+    read = {"graph": [], "eager": []}
+    for mode in read:
+        odo = graphed_on_cpu(cfg, 4, monkeypatch, no_read=False) if mode == "graph" else TSharded(
+            cfg, n_devices=4, device="cpu")
+        odo.run(seq, max_scans=5, on_scan=lambda o, m=read[mode]: m.append(
+            [x.clone() for x in o.voxmap]))
+    assert len(read["graph"]) == len(read["eager"]) == 5
+    for k, (g, e) in enumerate(zip(read["graph"], read["eager"])):
+        assert all(torch.equal(x, y) for x, y in zip(g, e)), f"the map read after scan {k + 1}"
+    # every scan inserted: each read is a new map
+    assert all(not torch.equal(a[1], b[1]) or not torch.equal(a[4], b[4])
+               for a, b in zip(read["graph"], read["graph"][1:]))
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_sharded_step_is_eager_under_a_process_group_and_says_why():
+    """`_make_steps` picks the step by `graph_choice`, from the device and
+    the process group alone: on a CUDA device without a group the captured
+    step; under a group eager (gloo stages its all-reduce through the host),
+    with the reason in `step_reason`."""
+    cuda = torch.device("cuda", 0)
+    assert t_smod.graph_choice(cuda)[0] is True
+    assert t_smod.graph_choice(torch.device("cpu")) == (False, "eager: the step runs on the cpu")
+    assert t_dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cpu",
+                             timeout_s=30.0) == (1, 0)
+    try:
+        graphed, why = t_smod.graph_choice(cuda)
+        assert graphed is False and why.startswith("eager: a gloo process group")
+        assert "staged through the host" in why
+        odo = TSharded(TCFG, n_devices=4, device="cpu")
+        assert odo.graphed is False and odo.step_reason == why
+        assert not isinstance(odo.scan_step, t_smod.GraphedShardedScanStep)
+        with pytest.raises(RuntimeError, match="only without a process group"):
+            t_smod.GraphedShardedScanStep(TCFG, odo.mesh)
+    finally:
+        t_dist.shutdown(wait=False)
+    assert t_smod.graph_choice(cuda)[0] is True
