@@ -20,9 +20,10 @@
    <<<1,32>>> kernel, the least any launch takes; and it times kernel B
    against `index_add_` at the shape of `voxel_map.insert`'s per-voxel sums.
    `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
-   process of its own, kernel B over values in host memory registered for
-   the card up to their last byte, where a load past the end is an illegal
-   address (it was, at N a multiple of the tile rows, before the halo fix).
+   process of its own, kernel B's values and kernel A's rows and mask in
+   host memory registered for the card up to their last byte, where a load
+   past the end is an illegal address (kernel B's was, at N a multiple of
+   the tile rows, before the halo fix).
 3. The captured step.  `control_flow`: the conditional graph nodes
    (`csrc/graph_cond.cu` through `utils/graphs.py`: an if/else around a
    sort, a WHILE loop holding an IF) against Python control flow on the same
@@ -93,10 +94,20 @@
    all-reduces staged through the host as in `dist`, with the device syncs
    counted: what the group adds to a scan; it must run eager, and equal the
    graphed run of `sharded` bit for bit.
-   `nccl`: one process group of one process on the card and one all-reduce
-   of the 43-float buffer through the sharded step's `reduce_fn` (two cards
-   are not available to this script); a sharded driver built under it must
-   report eager.
+   `nccl`: one process group of one process on the card (two cards are not
+   available to this script), which takes `nccl`: one all-reduce of the
+   43-float buffer through the sharded step's `reduce_fn`; a WHILE loop
+   whose body holds an NCCL collective (`nccl_in_body`: none, the in-place
+   all-reduce, an all-gather), its body's nodes by type and its values;
+   then the sharded driver of `sharded` under the group, twice on its
+   captured step, whose graphs now hold the step's all-reduces (the 43
+   floats of every GN pass after the first inside the GN loop's WHILE
+   node, the four counters at the top level), and once on the eager step: all three equal bit for bit to each
+   other and to the `sharded` phase's graph run without a group, kernel A
+   launched 4 x Σ GN iterations and kernel B 5 x scans (counted on the
+   device), at most 2 device syncs a scan on the graph; scans/s, device ms
+   a scan, capture seconds, nodes, and the nodes the collective added to
+   the WHILE body (the body here less the body captured without a group).
 6. `graph_stress`: `python -m eskf_lio_torch.utils.graph_stress` twice, each
    run the small config's rounds and then HEAVY's in one process.  Its
    default set (20 rounds, then 5): fresh graphed steps, single-device and
@@ -568,25 +579,30 @@ def kernel_b_phase(dev, config, scan_points) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernel_bounds_phase() -> list:
+def kernel_bounds_phase() -> dict:
     """`python -m eskf_lio_torch.utils.kernel_bounds` in a process of its
-    own: kernel B over values in host memory registered for the card up to
-    their last byte (a load past the end is an illegal address there), at N
-    a multiple of the tile rows, head rows against the plain version."""
+    own: each kernel over inputs in host memory registered for the card up
+    to their last byte (a load past the end is an illegal address there):
+    kernel B's values at N a multiple of the tile rows, head rows against
+    the plain version; kernel A's four row arrays and mask at N = 16,384,
+    8,192 and two ragged N, its sums against the plain version."""
     proc = subprocess.run([sys.executable, "-m", "eskf_lio_torch.utils.kernel_bounds"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     line = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")]
     check(proc.returncode == 0 and bool(line),
           f"kernel_bounds exited {proc.returncode}: "
           f"{(proc.stderr.strip().splitlines() or ['no output'])[-1][:300]}")
-    shapes = json.loads(line[-1].split(" ", 1)[1])["shapes"]
-    for s in shapes:
+    res = json.loads(line[-1].split(" ", 1)[1])
+    for s in res["shapes"]:
         # relative to the sum of absolute values: at most the longest run's
         # length (values in [0, 1), a key run over 40 % of the rows)
         check(s["max_abs_err"] <= SEG_TOL * 0.4 * s["n"],
-              f"kernel_bounds N={s['n']} W={s['w']}: error {s['max_abs_err']}")
-    print("kernel_bounds " + json.dumps(shapes))
-    return shapes
+              f"kernel_bounds B N={s['n']} W={s['w']}: error {s['max_abs_err']}")
+    for s in res["gn_shapes"]:
+        check(s["rel_err"] <= GN_TOL, f"kernel_bounds A N={s['n']}: rel_err {s['rel_err']}")
+    out = {"segscan": res["shapes"], "gn_normal_eq": res["gn_shapes"]}
+    print("kernel_bounds " + json.dumps(out))
+    return out
 
 
 def control_flow_phase(dev) -> dict:
@@ -1433,6 +1449,20 @@ def point_mass(voxmap) -> float:
     return float(voxmap.payload[:, 0].sum() + voxmap.d_payload[:, 0].sum())
 
 
+def graphs_captured(step) -> dict:
+    """A captured sharded step's graphs (with and without the eviction):
+    capture seconds, nodes, and the nodes of the GN loop's WHILE body by
+    type (`csrc/graph_cond.cu` reads them through the graph API)."""
+    return {
+        f"update{'_evict' if e else ''}": {
+            "capture_s": g.capture_s, "nodes": g.nodes,
+            "while_body": next({"nodes": b["nodes"], "by_type": b["by_type"]}
+                               for b in g.bodies if b["kind"] == "while" and b["depth"] == 0),
+        }
+        for e, g in step.graphs.items() if g.graph is not None
+    }
+
+
 def time_steps(odo, spans: list) -> None:
     """Put the driver's scan step between two CUDA events a call; `spans`
     gets the pairs, read after the run (no wait inside it)."""
@@ -1486,8 +1516,7 @@ def sharded_phase(seq, kernels, single, slices):
     # inside the warm half) holds the capture's host time, the stream idle
     warm = spans[len(spans) // 2:]
     device_ms = float(np.median([s.elapsed_time(e) for s, e in warm]))
-    captured = {f"update{'_evict' if e else ''}": {"capture_s": g.capture_s, "nodes": g.nodes}
-                for e, g in step.graphs.items() if g.graph is not None}
+    captured = graphs_captured(step)
     # the step writes its blocks in place: keep a copy of this run's map
     first_map = [vm.VoxelMap(*(x.clone() for x in b)) for b in first.voxmap.blocks]
 
@@ -1773,11 +1802,69 @@ def staged_phase(seq, kernels, sharded) -> dict:
     return res
 
 
-def nccl_phase(dev) -> dict:
-    """A process group of one process on the card takes `nccl`; one
-    all-reduce of the 43 floats through the sharded step's `reduce_fn`."""
+def nccl_in_body(dev) -> dict:
+    """What NCCL's own work becomes inside a WHILE body on this card: a loop
+    of three passes whose body adds one to a 43-float buffer and then runs
+    nothing more (`none`), the in-place all-reduce of the buffer
+    (`all_reduce`, as the sharded step's `reduce_fn` does), or an all-gather
+    of it into another buffer (`all_gather`, which NCCL serves with a copy of
+    its own for one rank).  Each case's body nodes by type, and whether a
+    replay gave the loop's values."""
     import torch
 
+    from eskf_lio_torch.utils import graphs
+
+    res = {}
+    for op in ("none", "all_reduce", "all_gather"):
+        x = torch.zeros(43, device=dev)
+        got = torch.zeros(43, device=dev)
+        k = torch.zeros((), dtype=torch.int32, device=dev)
+
+        def fn():
+            def body(c):
+                _, n, y, g = c
+                y = y + 1.0
+                if op == "all_reduce":
+                    torch.distributed.all_reduce(y)
+                g = g.clone()
+                if op == "all_gather":
+                    torch.distributed.all_gather_into_tensor(g, y)
+                return n + 1 < 3, n + 1, y, g
+
+            out = graphs.device_while(
+                body, (torch.ones((), dtype=torch.bool, device=dev), k, x, got), 10)
+            graphs.assign((k, x, got), out[1:])
+
+        g = graphs.StepGraph(fn, dev, 1024)
+        g()
+        torch.cuda.synchronize()
+        want_got = 3.0 if op == "all_gather" else 0.0
+        body = next(b for b in g.bodies if b["kind"] == "while")
+        res[op] = {"nodes": body["nodes"], "by_type": body["by_type"],
+                   "values_ok": int(k) == 3 and bool((x == 3.0).all())
+                   and bool((got == want_got).all())}
+        del g
+    return res
+
+
+def nccl_phase(dev, seq, kernels, sharded, sharded_res) -> dict:
+    """Under a process group of one process on the card, which takes
+    `nccl`: one all-reduce of the 43 floats through the sharded step's
+    `reduce_fn` (`reduce_fn_ms`); NCCL inside a WHILE body
+    (`nccl_in_body`); then `ShardedOdometry(n_devices=4)` on the sharded
+    phase's config and sequence, twice on its captured step, whose graphs
+    hold the step's all-reduces (the 43 floats of every GN pass after the
+    first inside the GN loop's WHILE node, the four counters at the top
+    level), and once on the eager sharded
+    step.  All three runs and the sharded phase's graph run without a group
+    (`sharded`) must be equal bit for bit, with launches as the sharded
+    phase's and at most 2 device syncs a scan on the graph."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from eskf_lio_torch.map import voxel_map as vm
     from eskf_lio_torch.ops import gn_normal_eq as gn
     from eskf_lio_torch.parallel import distributed as dist
     from eskf_lio_torch.parallel import sharded_map
@@ -1795,14 +1882,97 @@ def nccl_phase(dev) -> dict:
         check(dist.ALL_REDUCE.calls == 1, "reduce_fn did not call the all-reduce once")
         check(torch.equal(out[0], JTJ) and torch.equal(out[1], JTr) and torch.equal(out[2], n),
               "a one-process all-reduce changed the normal equations")
-        odo = sharded_map.ShardedOdometry(stream_config(), n_devices=N_SHARDS)
-        check(not odo.graphed and "nccl" in odo.step_reason,
-              f"the sharded driver under an nccl group is not eager: {odo.step_reason}")
-        res = dict(backend=backend, world_size=1, floats=43, step=odo.step_reason,
-                   reduce_fn_ms=event_ms(lambda: reduce_fn(JTJ[None], JTr[None], n[None])))
+        reduce_ms = event_ms(lambda: reduce_fn(JTJ[None], JTr[None], n[None]))
+        in_body = nccl_in_body(dev)
+        check(all(r["values_ok"] for r in in_body.values()),
+              f"a WHILE loop holding an NCCL collective gave wrong values: {in_body}")
+
+        config = stream_config()
+        first = sharded_map.ShardedOdometry(config, n_devices=N_SHARDS)
+        check(first.graphed and isinstance(first.scan_step, sharded_map.GraphedShardedScanStep)
+              and "nccl" in first.step_reason,
+              f"the sharded driver under an nccl group is not graphed: {first.step_reason}")
+        step, spans = first.scan_step, []
+        time_steps(first, spans)
+        dist.ALL_REDUCE.reset()
+        res_1, _ = drive(lambda cb: first.run(seq, on_scan=cb), first, kernels, seq,
+                         n_shards=N_SHARDS)
+        calls_1 = dist.ALL_REDUCE.calls
+        warm = spans[len(spans) // 2:]
+        device_ms = float(np.median([a.elapsed_time(b) for a, b in warm]))
+        captured = graphs_captured(step)
+        first_map = [vm.VoxelMap(*(x.clone() for x in b)) for b in first.voxmap.blocks]
+        again = sharded_map.ShardedOdometry(config, n_devices=N_SHARDS)
+        res_2, _ = drive(lambda cb: again.run(seq, on_scan=cb), again, kernels, seq,
+                         n_shards=N_SHARDS, count_syncs=True)
+        eager = sharded_map.ShardedOdometry(config, n_devices=N_SHARDS)
+        eager.scan_step = sharded_map.make_sharded_scan_step(config, eager.mesh)
+        dist.ALL_REDUCE.reset()
+        res_e, _ = drive(lambda cb: eager.run(seq, on_scan=cb), eager, kernels, seq,
+                         n_shards=N_SHARDS, count_syncs=True)
+        calls_e = dist.ALL_REDUCE.calls
+
+        def same_run(other, other_blocks):
+            return (np.array_equal(np.stack(first.trajectory_p), np.stack(other.trajectory_p))
+                    and np.array_equal(np.stack(first.trajectory_R),
+                                       np.stack(other.trajectory_R))
+                    and all(maps_bit_equal(x, y) for x, y in zip(first_map, other_blocks)))
+
+        bits = dict(graph_twice=same_run(again, again.voxmap.blocks),
+                    graph_equals_eager=same_run(eager, eager.voxmap.blocks),
+                    graph_equals_no_group=same_run(sharded, sharded.voxmap.blocks))
+        # the nodes the collective added to the GN loop's WHILE body: the
+        # body here less the body of the same graph captured without a group
+        added = {}
+        for name, g in captured.items():
+            alone = sharded_res["graph"]["graphs"][name]["while_body"]
+            mine = g["while_body"]
+            added[name] = {
+                "nodes": mine["nodes"] - alone["nodes"],
+                "by_type": {t: mine["by_type"].get(t, 0) - alone["by_type"].get(t, 0)
+                            for t in {*mine["by_type"], *alone["by_type"]}
+                            if mine["by_type"].get(t, 0) != alone["by_type"].get(t, 0)},
+            }
+        res = dict(
+            backend=backend, world_size=1, floats=43, reduce_fn_ms=reduce_ms,
+            nccl_version=".".join(map(str, torch.cuda.nccl.version())),
+            step=first.step_reason, nccl_in_body=in_body,
+            graph=dict(scans_per_s=res_1["scans_per_s"], second_scans_per_s=res_2["scans_per_s"],
+                       warm_half_scans_per_s=res_1["warm_half_scans_per_s"],
+                       device_ms_per_scan_median=device_ms, graphs=captured,
+                       while_body_nodes_added_by_the_collective=added,
+                       device_syncs_per_scan=res_2["device_syncs_per_scan"],
+                       sync_sites_per_scan=res_2["sync_sites_per_scan"],
+                       launches=res_1["launches"], gn_iterations=res_1["gn_iterations"],
+                       all_reduce_calls_seen_by_the_host=calls_1),
+            eager=dict(scans_per_s=res_e["scans_per_s"],
+                       warm_half_scans_per_s=res_e["warm_half_scans_per_s"],
+                       device_syncs_per_scan=res_e["device_syncs_per_scan"],
+                       launches=res_e["launches"], all_reduce_calls=calls_e),
+            no_group_graph_device_ms_per_scan=sharded_res["graph"]["device_ms_per_scan_median"],
+            bit_equal=bits,
+        )
+        del first, again, eager, step
+        gc.collect()
+        torch.cuda.synchronize()
     finally:
         dist.shutdown(wait=False)
     print("nccl " + json.dumps(res))
+    check(bits["graph_twice"], "two runs of the graphed sharded driver under nccl differ")
+    check(bits["graph_equals_eager"],
+          "the graphed and the eager sharded step under nccl differ in their bits")
+    check(bits["graph_equals_no_group"],
+          "the graphed sharded step under a one-process nccl group differs from the graph "
+          "without a group")
+    check(res_2["device_syncs_per_scan"] <= MAX_STREAM_SYNCS_PER_SCAN,
+          f"the graphed sharded driver under nccl waited for the device "
+          f"{res_2['device_syncs_per_scan']:.2f} times a scan (at most {MAX_STREAM_SYNCS_PER_SCAN})")
+    # the eager step all-reduces once per GN iteration and once per update
+    # scan, and once for the init scan; the graphed driver's host sees only
+    # the captures' calls and the eager init scan's
+    check(calls_e == res_e["gn_iterations"] + res_e["scans"],
+          f"{calls_e} all-reduces in the eager run for {res_e['gn_iterations']} GN iterations "
+          f"and {res_e['scans']} scans")
     return res
 
 
@@ -1911,7 +2081,8 @@ def main() -> int:
         by_path.update(launches)
         dist_phase(seq, sharded)
         staged_phase(seq, kernels, sharded)
-        nccl_phase(dev)
+        nccl = nccl_phase(dev, seq, kernels, sharded, sharded_res)
+        by_path["sharded_nccl"] = nccl["graph"]["launches"]
         stress = graph_stress_phase()
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
@@ -1968,8 +2139,19 @@ def main() -> int:
                 "scans_per_s", "device_syncs_per_scan", "busy_ms_per_scan", "idle_share")},
             "bit_equal": sharded_res["graph_equals_eager_bitwise"],
         },
+        # the same captured step under a one-process nccl group: its
+        # all-reduces inside the graph (the 43 floats inside the WHILE node
+        # for every GN pass after the first)
+        "sharded_graph_nccl": {
+            "graph": {k: nccl["graph"][k] for k in (
+                "scans_per_s", "warm_half_scans_per_s", "device_ms_per_scan_median",
+                "device_syncs_per_scan", "while_body_nodes_added_by_the_collective")},
+            "eager": {k: nccl["eager"][k] for k in ("scans_per_s", "device_syncs_per_scan")},
+            "bit_equal": nccl["bit_equal"], "nccl_in_body": nccl["nccl_in_body"],
+            "reduce_fn_ms": nccl["reduce_fn_ms"],
+        },
         "graph_stress": stress,
-        # kernel B over values that end a registered host range (phase 2)
+        # both kernels over inputs that end a registered host range (phase 2)
         "kernel_bounds": res_b["bounds"],
     }
     print(json.dumps(line))

@@ -106,12 +106,32 @@ int graph_cond_begin_body(void* stream, void* body) {
 }
 
 // End the body capture begun by graph_cond_begin_body; the number of
-// nodes the body holds.
-int graph_cond_end_body(void* stream, size_t* n_nodes) {
+// nodes the body holds, and of those the number of each type: `by_type[t]`
+// for cudaGraphNodeType t < n_types, and `by_type[n_types]` the nodes whose
+// type the runtime does not report (the body's own nodes, not those of a
+// body nested in it).  CUDA 12.9's runtime answers cudaErrorUnknown for a
+// conditional node nested in a body (on an H100); that answer is counted,
+// not returned.
+int graph_cond_end_body(void* stream, size_t* n_nodes, size_t* by_type, int n_types) {
     cudaGraph_t graph;
     cudaError_t err = cudaStreamEndCapture(static_cast<cudaStream_t>(stream), &graph);
     if (err != cudaSuccess) return err;
-    return cudaGraphGetNodes(graph, nullptr, n_nodes);
+    err = cudaGraphGetNodes(graph, nullptr, n_nodes);
+    if (err != cudaSuccess || *n_nodes == 0) return err;
+    cudaGraphNode_t* nodes = new cudaGraphNode_t[*n_nodes];
+    size_t n = *n_nodes;
+    err = cudaGraphGetNodes(graph, nodes, &n);
+    for (size_t i = 0; err == cudaSuccess && i < n; ++i) {
+        cudaGraphNodeType type;
+        if (cudaGraphNodeGetType(nodes[i], &type) != cudaSuccess) {
+            cudaGetLastError();  // a query's answer, not an error of the capture
+            ++by_type[n_types];
+        } else if (static_cast<int>(type) < n_types) {
+            ++by_type[type];
+        }
+    }
+    delete[] nodes;
+    return err;
 }
 
 // The number of nodes in the graph that `stream` is capturing.

@@ -1,31 +1,41 @@
 """ctypes bindings for the native runtime library (`native/eskf_runtime.cpp`).
 
 The port's copy of `eskf_lio_tpu/io/native_runtime.py`, binding the same
-library (`native/` lies outside both packages).  Provides the C++ SPSC
+source (`native/` lies outside both packages).  Provides the C++ SPSC
 queue and scan packing to Python.  Builds on demand with the repo Makefile;
 `pack_scan` has a numpy path for hosts without a compiler, and
 `native_available()` says which one runs.  This is host code: nothing here
 touches the device.
 
-Processes that start together (a multi-process run) must not load a library
-that another one is still linking: the check-and-build runs under an
-exclusive file lock (`native/.build.lock`), so one process builds and the
-others wait for it.
+The port loads a library that only it writes: `build/native/
+libeskf_runtime-<hash of the sources>.so`, made by `make` in a scratch copy
+of `native/`'s Makefile and source and moved into place with one atomic
+rename.  The JAX package builds `native/libeskf_runtime.so` in place and
+without a lock, so a process that loads that file while a JAX process's
+`make` is still linking it gets a half-written library: `ctypes.CDLL`
+raises "file too short" (1 of 30 starts of both packages' `load()` together
+on a fresh checkout).  Processes of the port that start together (a multi-process run) build under
+an exclusive file lock (`build/native/.build.lock`), so one process builds
+and the others wait for it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import fcntl
+import hashlib
 import os
+import shutil
 import subprocess
+import tempfile
 from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libeskf_runtime.so"))
-_LOCK_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, ".build.lock"))
+_NATIVE_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+_SOURCES = ("Makefile", "eskf_runtime.cpp")
+_TARGET = "libeskf_runtime.so"
+_BUILD_DIR = os.path.abspath(os.path.join(_NATIVE_DIR, "..", "build", "native"))
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -34,14 +44,29 @@ class NativeRuntimeUnavailable(RuntimeError):
     """The native library is not built and cannot be built on this host."""
 
 
-def _try_build() -> bool:
+def library_path() -> str:
+    """Where the port's build of the library lies, keyed by its sources."""
+    digest = hashlib.sha256()
+    for name in _SOURCES:
+        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+            digest.update(f.read())
+    return os.path.join(_BUILD_DIR, f"libeskf_runtime-{digest.hexdigest()[:16]}.so")
+
+
+def _try_build(out: str) -> bool:
+    """`make` the library in a scratch copy of the sources and rename it to
+    `out`: no reader ever sees a half-written file there."""
     try:
-        subprocess.run(
-            ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
+        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+            for name in _SOURCES:
+                shutil.copy(os.path.join(_NATIVE_DIR, name), tmp)
+            subprocess.run(
+                ["make", "-C", tmp, _TARGET],
+                check=True,
+                capture_output=True,
+                timeout=120,
+            )
+            os.replace(os.path.join(tmp, _TARGET), out)
         return True
     except (OSError, subprocess.SubprocessError):
         return False
@@ -52,14 +77,16 @@ def load(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    with open(_LOCK_PATH, "w") as lock:
+    path = library_path()
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".build.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if not os.path.exists(_LIB_PATH) and build_if_missing:
-            if not _try_build():
+        if not os.path.exists(path) and build_if_missing:
+            if not _try_build(path):
                 return None
-        if not os.path.exists(_LIB_PATH):
+        if not os.path.exists(path):
             return None
-    lib = ctypes.CDLL(_LIB_PATH)
+    lib = ctypes.CDLL(path)
 
     lib.spsc_create.restype = ctypes.c_void_p
     lib.spsc_create.argtypes = [ctypes.c_size_t, ctypes.c_size_t]

@@ -14,7 +14,11 @@ sensor stream in lockstep and holds the same filter state, bit for bit.
 * The backend is chosen from the layout, never by trial: `nccl` when every
   process of a host has a card of its own, `gloo` for CPU tensors and for
   processes that share a card (NCCL refuses two ranks on one GPU).
-* `all_reduce_sum` is the GN loop's sum over processes; `gather_blocks` and
+* `all_reduce_sum` is the GN loop's sum over processes.  Under `nccl` it
+  runs on the current stream's turn, so a capture records it: the captured
+  sharded step holds it inside the GN loop's WHILE node.  Under `gloo` a
+  CUDA tensor is staged through the host, which no graph can hold
+  (`staged`).  `gather_blocks` and
   `local_blocks` replace `replicate_to_mesh` / `shard_to_mesh`: per-process
   blocks to every process (or to one), and a full array cut to the caller's
   blocks.  Under `gloo` both stage CUDA tensors through the host (stock
@@ -44,6 +48,9 @@ ENV_NUM_PROCESSES = "ESKF_LIO_NUM_PROCESSES"
 ENV_PROCESS_ID = "ESKF_LIO_PROCESS_ID"
 ENV_PROCESSES_PER_HOST = "ESKF_LIO_PROCESSES_PER_HOST"
 COLLECTIVE_TIMEOUT_S = 300.0
+# a new number for every group this process forms: what a capture warmed
+# under one group (`warm_up`) is not warm under the next
+GROUP = {"generation": 0}
 
 
 def _env_int(name: str) -> int | None:
@@ -112,11 +119,33 @@ def initialize(
         rank=process_id,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
+    GROUP["generation"] += 1
     return dist.get_world_size(), dist.get_rank()
 
 
 def is_initialized() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+def backend() -> str | None:
+    """The process group's backend (`nccl`, `gloo`), None without a group."""
+    return dist.get_backend() if is_initialized() else None
+
+
+def staged(device: torch.device) -> bool:
+    """Whether a collective on tensors of `device` goes through a host copy:
+    under `gloo` with CUDA tensors.  Such a collective cannot be captured."""
+    return torch.device(device).type == "cuda" and backend() == "gloo"
+
+
+def warm_up(device: torch.device) -> None:
+    """One all-reduce of one word on the current stream of `device` (a
+    collective: every process calls it).  ProcessGroupNCCL makes its
+    communicator, and its stream and events for this device, at the first
+    collective; none of that may happen inside a capture, so
+    `utils.graphs.prepare` calls this on each stream that captures."""
+    if is_initialized():
+        _collective("all_reduce", dist.all_reduce, torch.zeros(1, device=device))
 
 
 def process_count() -> int:
@@ -176,7 +205,11 @@ class AllReduceStats:
     """What `all_reduce_sum` cost this process on the host's clock: its
     calls, the seconds inside them (for a staged CUDA tensor that includes
     the wait for the device to reach the tensor and both copies) and, of
-    those, the seconds inside the backend's own all-reduce."""
+    those, the seconds inside the backend's own all-reduce.
+
+    Only Python calls are seen: a captured step's all-reduces are counted
+    once, when the graph is captured, and never when it is replayed (nor is
+    the device time they take there)."""
 
     calls: int = 0
     seconds: float = 0.0
@@ -200,19 +233,16 @@ def _collective(name: str, fn, *args, **kwargs):
         ) from exc
 
 
-def _staged(x: torch.Tensor) -> bool:
-    """Whether a collective on `x` goes through a host copy."""
-    return x.is_cuda and dist.get_backend() == "gloo"
-
-
 def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum of `x` over the processes, the same bits on every one.  `x`
     itself without a process group; a group of one process still calls its
-    backend."""
+    backend.  Not staged (`nccl`, or `gloo` on CPU tensors), `x` is summed
+    in place; under `nccl` the sum is ordered on the current stream, which
+    a capture of that stream records."""
     if not is_initialized():
         return x
     t0 = time.perf_counter()
-    host = x.cpu() if _staged(x) else x
+    host = x.cpu() if staged(x.device) else x
     t1 = time.perf_counter()
     _collective("all_reduce", dist.all_reduce, host)
     ALL_REDUCE.backend_seconds += time.perf_counter() - t1
@@ -229,7 +259,7 @@ def gather_blocks(x: torch.Tensor, root: int | None = None) -> torch.Tensor | No
     if not is_initialized():
         return x
     n = process_count()
-    src = x.cpu() if _staged(x) else x.contiguous()
+    src = x.cpu() if staged(x.device) else x.contiguous()
     if root is None:
         parts = [torch.empty_like(src) for _ in range(n)]
         _collective("all_gather", dist.all_gather, parts, src)

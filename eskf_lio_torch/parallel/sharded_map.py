@@ -194,7 +194,14 @@ def _shard_sum_fn(n_local: int):
     """`align`'s `reduce_fn` over the shards: the local partials [L, 6, 6],
     [L, 6], [L] packed as f32 [L, 43] (36 + 6 + 1; the count is exact below
     2^24), added pairwise in index order, then summed over the processes in
-    ONE all-reduce of 43 floats."""
+    ONE all-reduce of 43 floats.
+
+    In the captured step under `nccl` this all-reduce lies inside the GN
+    loop's WHILE node, once per pass after the first (which runs before the
+    node), and each process runs the loop on its own device.  Every process must make the same number of passes, or a
+    collective would wait for a peer that left the loop.  They do: the
+    loop's condition is computed from the summed normal equations and the
+    replicated pose, which are the same bits on every process."""
 
     def reduce_fn(JTJ, JTr, num_corr):
         packed = torch.cat(
@@ -398,8 +405,14 @@ class GraphedShardedScanStep(odo.GraphedScanStep):
     WHILE node (the shard sum is the local pairwise `reduce_fn`) and each
     shard's `insert` fold its pair of IF nodes.
 
-    Only without a process group: there `all_reduce_sum` is the identity.
-    `ShardedOdometry` decides by `graph_choice`.
+    Without a process group `all_reduce_sum` is the identity.  Under `nccl`
+    the graph holds both of the step's all-reduces: the 43 floats of the
+    first GN pass at its top level and of every later pass inside the WHILE
+    node, the four counters once at the top level.
+    Under `gloo` a CUDA tensor's all-reduce is staged through the host,
+    which no graph can hold, so that case is refused; `gloo` on the CPU
+    (where the graph is only ever a stand-in that calls the function) is
+    not.  `ShardedOdometry` decides by `graph_choice`.
 
     A call returns a NEW `ShardedVoxelMap` over the static blocks: a map
     caches its gathered arrays, and the blocks change under it with every
@@ -409,10 +422,10 @@ class GraphedShardedScanStep(odo.GraphedScanStep):
     diag_keys = SHARDED_DIAG_KEYS
 
     def __init__(self, config: Config, mesh: ShardMesh):
-        if dist.is_initialized():
+        if dist.staged(mesh.device):
             raise RuntimeError(
-                "the sharded step is captured only without a process group "
-                "(graph_choice): its sums would cross the group inside the graph"
+                "the sharded step is not captured under a gloo process group on a "
+                "CUDA device (graph_choice): its all-reduce is staged through the host"
             )
         self.mesh = mesh
         super().__init__(config, mesh.device)
@@ -441,19 +454,21 @@ class GraphedShardedScanStep(odo.GraphedScanStep):
 def graph_choice(device: torch.device) -> tuple[bool, str]:
     """Whether `ShardedOdometry`'s scan step on `device` is a captured graph,
     and one line that says why.  The rule reads the device and the process
-    group, nothing else: with a group the shard sum crosses it (under `gloo`
-    staged through the host, which a graph cannot hold; under `nccl` a
-    capture of the collective is not built yet), so the step stays eager."""
-    if dist.is_initialized():
-        backend = torch.distributed.get_backend()
-        why = ("its all-reduce is staged through the host, which a graph cannot hold"
-               if backend == "gloo" else
-               "capturing its all-reduce inside the GN loop is not built yet")
-        return False, f"eager: a {backend} process group is initialised and {why}"
+    group's backend, nothing else: on the CPU the step is eager; on a card
+    it is captured without a group and under `nccl` (whose all-reduce the
+    capture records, inside the GN loop), and eager under `gloo` (which
+    stages it through the host, where a graph cannot follow)."""
     if device.type != "cuda":
         return False, f"eager: the step runs on the {device.type}"
-    return True, ("graph: one process holds every shard on its card, so the shard sum "
-                  "is local and the step is captured")
+    backend = dist.backend()
+    if backend is None:
+        return True, ("graph: one process holds every shard on its card, so the shard sum "
+                      "is local and the step is captured")
+    if dist.staged(device):
+        return False, (f"eager: a {backend} process group is initialised and its all-reduce "
+                       "is staged through the host, which a graph cannot hold")
+    return True, (f"graph: under the {backend} process group the all-reduce of the shard "
+                  "sums is captured inside the GN loop's WHILE node")
 
 
 class ShardedOdometry(odo.Odometry):

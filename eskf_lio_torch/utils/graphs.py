@@ -53,6 +53,7 @@ import torch
 
 from eskf_lio_torch.ops import gn_normal_eq, segscan
 from eskf_lio_torch.ops._cuda import INT, PTR, CudaKernel
+from eskf_lio_torch.parallel import distributed as dist
 
 _U64 = ctypes.c_ulonglong
 _SIZE = ctypes.c_size_t
@@ -66,11 +67,16 @@ GRAPH_COND = CudaKernel(
         "graph_cond_set": [_U64, PTR, PTR],
         "graph_cond_add_node": [PTR, _U64, INT, ctypes.POINTER(PTR)],
         "graph_cond_begin_body": [PTR, PTR],
-        "graph_cond_end_body": [PTR, ctypes.POINTER(_SIZE)],
+        "graph_cond_end_body": [PTR, ctypes.POINTER(_SIZE), ctypes.POINTER(_SIZE), INT],
         "graph_cond_captured_nodes": [PTR, ctypes.POINTER(_SIZE)],
     },
 )
 _IF, _WHILE = 0, 1
+# cudaGraphNodeType, by value (CUDA 12.4+): what a conditional body holds;
+# last, the nodes whose type the runtime does not report (`graph_cond.cu`)
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty", "wait_event",
+              "event_record", "ext_semaphore_signal", "ext_semaphore_wait", "mem_alloc",
+              "mem_free", "batch_mem_op", "conditional", "unreported")
 # conditional nodes nest at most this deep (the GN loop's re-match IF sits
 # inside its WHILE)
 MAX_DEPTH = 2
@@ -157,9 +163,15 @@ def _conditional(pred: torch.Tensor, kind: int, repeat_on: torch.Tensor | None =
                 torch._C._cuda_endAllocateToPool(dev.index, pool)
     finally:
         stack.pop()
-        n = _SIZE()
-        GRAPH_COND.call("graph_cond_end_body", body_stream.cuda_stream, ctypes.byref(n))
+        n, by_type = _SIZE(), (_SIZE * len(NODE_TYPES))()
+        GRAPH_COND.call("graph_cond_end_body", body_stream.cuda_stream, ctypes.byref(n),
+                        by_type, len(NODE_TYPES) - 1)
         _LOCAL.nodes = getattr(_LOCAL, "nodes", 0) + n.value
+        _LOCAL.__dict__.setdefault("bodies", []).append({
+            "kind": "while" if kind == _WHILE else "if", "depth": len(stack),
+            "nodes": n.value,
+            "by_type": {t: c for t, c in zip(NODE_TYPES, by_type) if c},
+        })
 
 
 def device_if(pred: torch.Tensor, fn: Callable, outs=None, otherwise: Callable | None = None):
@@ -234,8 +246,11 @@ def prepare(device: torch.device, segscan_rows: int) -> torch.cuda.Stream:
     """Everything a capture on `device` must find made (call outside any
     capture): the capture stream, a stream and pool per body depth, the
     cuBLAS / cuSOLVER state of each, the conditional-node library, and the
-    kernels' capture scratch for up to `segscan_rows` rows.  Returns the
-    capture stream."""
+    kernels' capture scratch for up to `segscan_rows` rows.  Under a process
+    group whose collectives a capture can hold (`nccl`), also one all-reduce
+    on each of those streams, once per group (`distributed.warm_up`: a
+    collective, so every process prepares at the same point of its run, as
+    the sharded driver's processes do).  Returns the capture stream."""
     device = _indexed(device)
     GRAPH_COND.lib()
     gn_normal_eq.reserve_capture(device)
@@ -246,17 +261,24 @@ def prepare(device: torch.device, segscan_rows: int) -> torch.cuda.Stream:
             _BODIES[(device.index, depth)] = (
                 torch.cuda.Stream(device), torch.cuda.graph_pool_handle()
             )
-    # cuBLAS handles are per thread: each capturing thread warms its own
+    # cuBLAS handles are per thread: each capturing thread warms its own;
+    # a group's collectives are warmed once per group
     warmed = _LOCAL.__dict__.setdefault("warmed", set())
-    if device.index not in warmed:
-        warmed.add(device.index)
+    group = (device.index, dist.GROUP["generation"])
+    libraries = device.index not in warmed
+    collectives = dist.backend() == "nccl" and group not in warmed
+    if libraries or collectives:
+        warmed.update((device.index, group) if collectives else (device.index,))
         current = torch.cuda.current_stream(device)
         streams = [_CAPTURE_STREAMS[device.index]]
         streams += [_BODIES[(device.index, d)][0] for d in range(MAX_DEPTH)]
         for s in streams:
             s.wait_stream(current)
             with torch.cuda.stream(s):
-                _warm(device)
+                if libraries:
+                    _warm(device)
+                if collectives:
+                    dist.warm_up(device)
             current.wait_stream(s)
     return _CAPTURE_STREAMS[device.index]
 
@@ -267,8 +289,10 @@ class StepGraph:
     (static inputs, carry and outputs) and returns nothing: what it
     allocates lives in the graph's pool and is dead when it returns.
 
-    `capture_s` and `nodes` (top level and every conditional body) describe
-    the capture; graphs that never run at once may share a `pool`."""
+    `capture_s`, `nodes` (top level and every conditional body) and
+    `bodies` (each conditional body in capture order: its kind, depth, nodes
+    and nodes by type) describe the capture; graphs that never run at once
+    may share a `pool`."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device, segscan_rows: int,
                  pool=None):
@@ -279,12 +303,13 @@ class StepGraph:
         self.graph: torch.cuda.CUDAGraph | None = None
         self.capture_s: float | None = None
         self.nodes: int | None = None
+        self.bodies: list[dict] | None = None
 
     def capture(self) -> None:
         stream = prepare(self.device, self.segscan_rows)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        _LOCAL.nodes = 0
+        _LOCAL.nodes, _LOCAL.bodies = 0, []
         top = _SIZE()
         with _CAPTURES_LOCK:
             _CAPTURES["under_way"] += 1
@@ -307,6 +332,7 @@ class StepGraph:
             del parked  # destroyed here, outside any capture
         self.capture_s = time.perf_counter() - t0
         self.nodes = top.value + _LOCAL.nodes
+        self.bodies = _LOCAL.bodies
         self.graph = graph
 
     def __call__(self) -> None:

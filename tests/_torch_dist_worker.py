@@ -7,6 +7,13 @@ Launched as:  python tests/_torch_dist_worker.py --coordinator localhost:PORT \
     --num-processes 2 --process-id I --out OUT.json --ckpt DIR
 Every process saves its checkpoint to DIR_<I> (only process 0 may write one)
 and all of them load DIR_0.
+
+With `--graphed` instead of `--ckpt`, each process runs the sharded driver
+over the 12 scans of `make_seq(GRAPHED_DURATION_S)` twice: on a
+`GraphedShardedScanStep` whose graphs are stand-ins that call the function
+a graph would capture (`graphed_on_cpu`: every branch and GN pass run, with
+the all-reduce inside every pass, under `NoHostRead`), and on the eager
+sharded step; it writes both runs' records (`run_record`).
 """
 
 import argparse
@@ -31,10 +38,62 @@ def worker_config():
     )
 
 
-def make_seq():
+# 12 scans (the first one the init scan)
+GRAPHED_DURATION_S = 1.3
+
+
+def make_seq(duration: float = 1.2):
     from eskf_lio_torch.io import dataset
 
-    return dataset.make_synthetic_sequence(duration=1.2, points_per_scan=1800, seed=7)
+    return dataset.make_synthetic_sequence(duration=duration, points_per_scan=1800, seed=7)
+
+
+def graphed_on_cpu(odo, no_read: bool = True):
+    """Put in `odo`'s place a `GraphedShardedScanStep` over CPU buffers
+    whose graphs are stand-ins for `StepGraph`: a replay calls the function
+    the graph would capture; with `no_read`, in select mode (every branch
+    and every GN pass run, merged by `torch.where`, so the all-reduce runs
+    inside every pass) under `NoHostRead`, which fails on any read of a
+    device value."""
+    import torch
+
+    from _torch_no_host_read import NoHostRead
+    from eskf_lio_torch.parallel.sharded_map import GraphedShardedScanStep
+    from eskf_lio_torch.pipeline import odometry
+    from eskf_lio_torch.utils import graphs
+
+    class Uncaptured:
+        def __init__(self, fn, device, segscan_rows, pool=None):
+            self.fn = fn
+
+        def __call__(self):
+            if no_read:
+                with graphs.select_branches(), NoHostRead():
+                    self.fn()
+            else:
+                self.fn()
+
+    held = odometry.StepGraph, torch.cuda.graph_pool_handle
+    odometry.StepGraph, torch.cuda.graph_pool_handle = Uncaptured, lambda: None
+    try:
+        odo.scan_step = GraphedShardedScanStep(odo.config, odo.mesh)
+    finally:
+        odometry.StepGraph, torch.cuda.graph_pool_handle = held
+    return odo
+
+
+def run_record(odo) -> dict:
+    """A run's trajectory, diagnostics and a sha1 of its gathered map (a
+    collective), for comparison bit for bit."""
+    h = hashlib.sha1()
+    for x in odo.voxmap:
+        h.update(np.ascontiguousarray(x.cpu().numpy()).tobytes())
+    return {
+        "positions": odo.positions.tolist(),
+        "rotations_sha1": hashlib.sha1(np.stack(odo.trajectory_R).tobytes()).hexdigest(),
+        "diags": [{k: int(v) for k, v in d.items()} for d in odo.diags],
+        "map_sha1": h.hexdigest(),
+    }
 
 
 def state_digest(odo) -> str:
@@ -71,7 +130,9 @@ def main() -> int:
     ap.add_argument("--num-processes", type=int, required=True)
     ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--out", required=True)
-    ap.add_argument("--ckpt", required=True)  # shared prefix, all processes
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--ckpt")  # shared prefix, all processes
+    mode.add_argument("--graphed", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -88,6 +149,20 @@ def main() -> int:
     )
     assert n == args.num_processes, (n, args.num_processes)
     n_shards = 2 * n
+
+    if args.graphed:
+        seq = make_seq(GRAPHED_DURATION_S)
+        runs = {}
+        for name in ("graph", "eager"):
+            odo = ShardedOdometry(worker_config(), n_devices=n_shards, device="cpu")
+            if name == "graph":
+                graphed_on_cpu(odo)
+            odo.run(seq)
+            runs[name] = run_record(odo)
+        with open(args.out, "w") as f:
+            json.dump({"process": i, "backend": torch.distributed.get_backend(), **runs}, f)
+        dist.shutdown()
+        return 0
 
     seq = make_seq()
     digests = []

@@ -70,9 +70,29 @@ def continue_run(odo, seq, start, stop):
     return out
 
 
-def assert_maps_bit_equal(a, b):
+def assert_maps_bit_equal(a, b, why=""):
     for name, x, y in zip(a._fields, convert.to_numpy(a), convert.to_numpy(b)):
-        np.testing.assert_array_equal(x.view(np.int32), y.view(np.int32), err_msg=name)
+        np.testing.assert_array_equal(x.view(np.int32), y.view(np.int32), err_msg=f"{name} {why}")
+
+
+def where_runs_part(a, c) -> str:
+    """Where two drivers' runs part, for a failure's message: the first
+    scan whose position differs and by how many ulps, then every state
+    field (ulps) and map field (differing words) that differs at the end."""
+    def ulps(x, y):
+        x, y = (np.asarray(v, np.float32).view(np.int32).astype(np.int64) for v in (x, y))
+        return int(np.abs(x - y).max()) if x.size else 0
+
+    parts = [f"scan {k}: position {ulps(p, q)} ulps apart"
+             for k, (p, q) in enumerate(zip(a.trajectory_p, c.trajectory_p))
+             if not np.array_equal(p, q)][:1]
+    parts += [f"state.{n}: {ulps(x.numpy(), y.numpy())} ulps"
+              for n, x, y in zip(a.state._fields, a.state, c.state) if not torch.equal(x, y)]
+    parts += [f"map.{n}: {int((x.view(np.int32) != y.view(np.int32)).sum())} words"
+              for n, x, y in zip(a.voxmap._fields, convert.to_numpy(a.voxmap),
+                                 convert.to_numpy(c.voxmap))
+              if not np.array_equal(x.view(np.int32), y.view(np.int32))]
+    return "; ".join(parts) or "no difference"
 
 
 # ---------------------------------------------------------------------------
@@ -97,12 +117,13 @@ def test_checkpoint_resume_exact(tmp_path, short_seq):
     assert c.voxmap.skey.dtype == torch.int32 and c.state.P.dtype == torch.float32
     continue_run(c, short_seq, 5, 10)
 
-    np.testing.assert_array_equal(np.stack(a.trajectory_p), np.stack(c.trajectory_p))
-    np.testing.assert_array_equal(np.stack(a.trajectory_R), np.stack(c.trajectory_R))
-    assert a.trajectory_t == c.trajectory_t
-    assert_maps_bit_equal(a.voxmap, c.voxmap)
+    why = where_runs_part(a, c)
+    np.testing.assert_array_equal(np.stack(a.trajectory_p), np.stack(c.trajectory_p), err_msg=why)
+    np.testing.assert_array_equal(np.stack(a.trajectory_R), np.stack(c.trajectory_R), err_msg=why)
+    assert a.trajectory_t == c.trajectory_t, why
+    assert_maps_bit_equal(a.voxmap, c.voxmap, why)
     for x, y in zip(a.state, c.state):
-        np.testing.assert_array_equal(x.numpy(), y.numpy())
+        np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=why)
 
 
 def test_checkpoint_layout_is_the_jax_packages(tmp_path, short_seq):
@@ -318,7 +339,7 @@ def test_pack_scan_native_vs_numpy(rng, monkeypatch, cap):
     for a, b in zip(native[:3], plain[:3]):
         np.testing.assert_array_equal(a, b)
     assert native[3] == plain[3]
-    # both packages bind one library, the same way
+    # both packages bind one source's library, the same way
     for a, b in zip(native[:3], j_native.pack_scan(xyz, t, 1000.0, cap)[:3]):
         np.testing.assert_array_equal(a, b)
     assert t_native.IMU_DTYPE == j_native.IMU_DTYPE
@@ -338,6 +359,54 @@ def test_native_spsc_queue():
     assert q.pop()["t"] == 0.0
     np.testing.assert_array_equal(q.pop_all()["t"], [1.0, 2.0, 3.0])
     assert q.pop() is None
+
+
+PACK_AND_COMPARE = """
+import numpy as np
+from eskf_lio_torch.io import native_runtime as n
+rng = np.random.default_rng(3)
+xyz = rng.normal(size=(500, 3)).astype(np.float32)
+t = 1000.0 + np.sort(rng.uniform(-0.1, 0, 500))
+native = n.pack_scan(xyz, t, 1000.0, 640)
+assert n.native_available()
+n.load = lambda build_if_missing=True: None
+plain = n.pack_scan(xyz, t, 1000.0, 640)
+assert all(np.array_equal(a, b) for a, b in zip(native, plain))
+print(n.library_path())
+"""
+
+
+def test_port_never_loads_a_library_another_builder_is_writing(tmp_path):
+    """The JAX package builds `native/libeskf_runtime.so` in place and
+    without a lock, so while its `make` links, the file is there but short;
+    the port loaded that file and raised OSError ("file too short") when it
+    packed its first scan then (ROADMAP.md, queue 3).  A copy of the port
+    and of `native/`'s sources beside such a file (an ELF header alone), in
+    a process of its own: the port leaves it alone, builds and loads its
+    own library under `build/native/`, and packs a scan as the numpy path
+    does."""
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    root = tmp_path / "checkout"
+    shutil.copytree(repo / "eskf_lio_torch", root / "eskf_lio_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "native").mkdir()
+    for name in ("Makefile", "eskf_runtime.cpp"):
+        shutil.copy(repo / "native" / name, root / "native")
+    # a 64-bit ELF header and nothing after it, as a linker starts the file
+    head = Path(sys.executable).resolve().read_bytes()[:64]
+    (root / "native" / "libeskf_runtime.so").write_bytes(head)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", PACK_AND_COMPARE], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    built = Path(proc.stdout.split()[-1])
+    assert built.parent == root / "build" / "native" and built.is_file()
+    assert (root / "native" / "libeskf_runtime.so").stat().st_size == 64
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,10 @@ the streaming driver's launch counts, the sharded driver (both kernels
 at a shard's slice shapes; four shards on the one card, twice, bit for bit),
 and the captured step: conditional nodes against Python control flow, the
 graphed replay and the graphed sharded driver against the eager step bit for
-bit, and short rounds of the graph stress test (`utils/graph_stress.py`).
+bit (also under a one-process `nccl` group, whose all-reduces the graph
+holds), and short rounds of the graph stress test (`utils/graph_stress.py`);
+both kernels over inputs that end a registered host range
+(`utils/kernel_bounds.py`).
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -194,14 +197,13 @@ def test_segscan_kernel_takes_an_unaligned_view(dev):
     assert torch.equal(out, segscan.segsum_sorted(keys[1:].clone(), vals[1:].clone()))
 
 
-def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(dev):
-    """`python -m eskf_lio_torch.utils.kernel_bounds`: kernel B over values
-    in host memory registered for the device up to their last byte, at N a
-    multiple of the tile rows, in a process of its own (a fault ends its
-    CUDA context).  The last tile of such an N has no row after it, and its
-    halo warp loaded 32 (its 16-byte path): an illegal address there, and
-    in device memory where the values end a mapped range, the eager sharded
-    step's fault after long runs (ROADMAP.md, queue 3)."""
+@pytest.fixture(scope="module")
+def kernel_bounds_run():
+    """`python -m eskf_lio_torch.utils.kernel_bounds` once, in a process of
+    its own (a fault ends its CUDA context): its exit code, its last line's
+    JSON and its error output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
     import json
     import subprocess
     import sys
@@ -210,13 +212,37 @@ def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(dev):
     proc = subprocess.run([sys.executable, "-m", "eskf_lio_torch.utils.kernel_bounds"],
                           cwd=Path(__file__).resolve().parents[1],
                           capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    line = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")][-1]
-    shapes = json.loads(line.split(" ", 1)[1])["shapes"]
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")]
+    return proc.returncode, json.loads(lines[-1].split(" ", 1)[1]) if lines else None, proc.stderr
+
+
+def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(kernel_bounds_run):
+    """`python -m eskf_lio_torch.utils.kernel_bounds`: kernel B over values
+    in host memory registered for the device up to their last byte, at N a
+    multiple of the tile rows.  The last tile of such an N has no row after
+    it, and its halo warp loaded 32 (its 16-byte path): an illegal address
+    there, and in device memory where the values end a mapped range, the
+    eager sharded step's fault after long runs (ROADMAP.md, queue 3)."""
+    rc, res, err = kernel_bounds_run
+    assert rc == 0, err[-2000:]
+    shapes = res["shapes"]
     assert len(shapes) == 5
     # tolerance: relative to the sum of absolute values, which is at most the
     # longest run's length (values in [0, 1), a key run over 40 % of the rows)
     assert all(s["max_abs_err"] <= TOL * 0.4 * s["n"] for s in shapes)
+
+
+def test_gn_kernel_reads_nothing_past_the_end_of_its_rows(kernel_bounds_run):
+    """The same module's kernel-A case: the four row arrays and the mask,
+    each in host memory registered up to its last byte, at the main path's
+    N = 16,384 and a shard's 8,192 (16-byte loads) and at two ragged N (the
+    last chunk's 4-byte loads): no fault, and the sums within `TOL` of the
+    plain version, relative to the sum of the terms' absolute values (the
+    tolerance of `test_gn_kernel_matches_plain`)."""
+    rc, res, err = kernel_bounds_run
+    assert rc == 0, err[-2000:]
+    assert [s["n"] for s in res["gn_shapes"]] == [16384, 8192, 8191, 1000]
+    assert all(s["rel_err"] <= TOL for s in res["gn_shapes"])
 
 
 def test_segscan_kernel_all_unique_is_identity(dev):
@@ -585,3 +611,123 @@ def test_graph_stress_rounds_on_the_card(dev):
     assert res["rounds"] == 3 and res["scans_compared"] == 3 * 2 * 4
     # round 1 grows the capture scratch once for each of its two steps
     assert res["retired_scratch_buffers"] == 2
+
+
+def _nccl_group_of_one():
+    """A process group of this process alone on the card (`nccl`)."""
+    import socket
+
+    from eskf_lio_torch.parallel import distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert dist.initialize(f"127.0.0.1:{port}", 1, 0, timeout_s=60.0) == (1, 0)
+    assert torch.distributed.get_backend() == "nccl"
+
+
+def test_graphed_sharded_step_under_a_one_process_nccl_group(dev):
+    """Under a process group of one process on the card (`nccl`),
+    `ShardedOdometry(n_devices=4)` runs the captured sharded step, its
+    all-reduces inside the graph (the 43 floats inside the GN loop's WHILE
+    node): over 6 scans the same bits as the eager sharded step under the
+    same group and as the captured step without a group (a one-process sum
+    is the identity), kernel A launched 4 x Σ GN iterations and kernel B
+    5 x scans, counted on the device."""
+    from eskf_lio_torch.parallel import distributed as dist
+    from eskf_lio_torch.parallel import sharded_map as smod
+
+    cfg = Config(
+        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), translation_noise=1e-4,
+        rotation_noise=3e-5, max_raw_points=8192, max_scan_points=4096,
+        max_imu_per_scan=48, hash_capacity_log2=16, remove_period=0.2,
+        remove_distance_threshold=8.0,
+    )
+    seq = dataset.make_synthetic_sequence(duration=1.0, points_per_scan=8000, seed=7)
+
+    def run(eager=False):
+        odo = smod.ShardedOdometry(cfg, n_devices=4)
+        assert odo.graphed and isinstance(odo.scan_step, smod.GraphedShardedScanStep)
+        if eager:
+            odo.scan_step = smod.make_sharded_scan_step(cfg, odo.mesh)
+        for k in (gn.KERNEL, segscan.KERNEL):
+            k.reset_launches()
+        odo.run(seq, max_scans=6)
+        iters = sum(int(d["icp_iterations"]) for d in odo.diags)
+        assert gn.KERNEL.launch_count() == 4 * iters > 0
+        assert segscan.KERNEL.launch_count() == (1 + 4) * 6
+        return (odo.positions, np.stack(odo.trajectory_R),
+                [x.clone() for b in odo.voxmap.blocks for x in b], odo.step_reason)
+
+    alone = run()
+    _nccl_group_of_one()
+    try:
+        graph, eager = run(), run(eager=True)
+    finally:
+        dist.shutdown(wait=False)
+    assert graph[3].startswith("graph: under the nccl process group")
+    for other in (eager, alone):
+        assert np.array_equal(graph[0], other[0]) and np.array_equal(graph[1], other[1])
+        assert all(torch.equal(x, y) for x, y in zip(graph[2], other[2]))
+
+
+def test_prepare_under_a_group_warms_its_all_reduce_before_the_first_capture(dev, monkeypatch):
+    """`graphs.prepare` under an `nccl` group runs one all-reduce on the
+    capture stream and on each body stream (ProcessGroupNCCL makes its
+    communicator, stream and events at the first collective, which a
+    capture cannot hold), before the first capture of that group and never
+    again under it; a new group is warmed anew."""
+    from eskf_lio_torch.parallel import distributed as dist
+
+    calls = []
+    warm_up = dist.warm_up
+    monkeypatch.setattr(dist, "warm_up", lambda d: (
+        calls.append(("warm_up", torch.cuda.current_stream(d).cuda_stream)), warm_up(d)))
+    x = torch.arange(43.0, device=dev)
+    out = torch.zeros(43, device=dev)
+
+    def step():
+        calls.append(("capture", None))
+        out.copy_(dist.all_reduce_sum(x * 1.0))
+
+    for _ in range(2):
+        _nccl_group_of_one()
+        try:
+            calls.clear()
+            graph = graphs.StepGraph(step, dev, segscan_rows=1024)
+            graph()
+            graphs.StepGraph(step, dev, segscan_rows=1024)()
+            torch.cuda.synchronize()
+            assert torch.equal(out, x)
+            streams = {graphs._CAPTURE_STREAMS[dev.index or 0].cuda_stream} | {
+                graphs._BODIES[(dev.index or 0, d)][0].cuda_stream
+                for d in range(graphs.MAX_DEPTH)}
+            assert [c[0] for c in calls] == ["warm_up"] * len(streams) + ["capture"] * 2
+            assert {c[1] for c in calls[:len(streams)]} == streams
+            del graph
+        finally:
+            dist.shutdown(wait=False)
+
+
+def test_cli_scan_step_under_an_nccl_group_is_the_graph(dev, tmp_path):
+    """`python -m eskf_lio_torch.cli --devices 4 --coordinator ...
+    --num-processes 1`: a group of one process on the card takes `nccl`, and
+    the CLI's `scan step:` line reads the captured step."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "eskf_lio_torch.cli", "--synthetic", "1.0",
+         "--points-per-scan", "3000", "--devices", "4", "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "1", "--process-id", "0",
+         "--traj-out", str(tmp_path / "t.json")],
+        cwd=Path(__file__).resolve().parents[1], capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    line = [l for l in proc.stdout.splitlines() if l.startswith("scan step:")]
+    assert line and line[0].startswith("scan step: graph: under the nccl process group"), line

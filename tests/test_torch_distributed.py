@@ -11,7 +11,10 @@ one process 1e-6 m (the shards' sums are added pairwise, the same f32
 expression in both layouts) and against the JAX package's one process
 2e-2 m (`tests/test_distributed.py`'s bound: the same sums in another
 order); a run resumed from a checkpoint 1e-3 m (restore is exact; on this
-CPU path the continuation is too).
+CPU path the continuation is too).  The captured sharded step's function
+under the group (its all-reduce inside every pass of the GN loop) equals
+the eager step of the same two processes and the one-process captured run
+bit for bit.
 """
 
 import json
@@ -25,7 +28,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_dist_worker import distinct_voxels, make_seq, worker_config
+from _torch_dist_worker import (
+    GRAPHED_DURATION_S, distinct_voxels, graphed_on_cpu, make_seq, run_record, worker_config,
+)
 from eskf_lio_torch.io import export
 from eskf_lio_torch.parallel import distributed as dist
 from eskf_lio_torch.parallel.distributed import ShardMesh
@@ -117,6 +122,56 @@ def test_two_process_sharded_run(tmp_path):
     j_ref = JSharded(j_worker_config(), n_devices=4)
     j_ref.run(j_make_seq(), max_scans=6)
     np.testing.assert_allclose(p0, j_ref.positions, atol=2e-2)
+
+
+def test_two_process_graphed_step_equals_eager_and_one_process(tmp_path):
+    """The captured sharded step under a process group: two `gloo`
+    processes, two shards each, run `GraphedShardedScanStep` with its
+    graphs' function called in select mode (every GN pass run, so the
+    43-float all-reduce sits inside every pass, as it sits inside the WHILE
+    node of the graph under `nccl`) under `NoHostRead`, over 12 scans.
+    Each process's run equals its eager sharded step, the two processes
+    agree, and both equal the one-process captured run of the four shards,
+    bit for bit (trajectory, diagnostics, every word of the gathered map);
+    the JAX package's one-process mesh of four devices is within 2e-2 m over
+    the six scans that `test_two_process_sharded_run` holds to that bound.
+    (Past them the two packages' runs of this 1,800-point configuration part
+    by centimetres and more, whatever the layout: on some scans its GN loop
+    takes tens of iterations, in both packages.)"""
+    port = _free_port()
+    outs = [str(tmp_path / f"graphed_{i}.json") for i in range(2)]
+    done = run_processes([
+        [sys.executable, WORKER, "--coordinator", f"localhost:{port}",
+         "--num-processes", "2", "--process-id", str(i), "--out", outs[i], "--graphed"]
+        for i in range(2)
+    ])
+    for rc, _, err in done:
+        assert rc == 0, err[-3000:]
+    results = []
+    for o in outs:
+        with open(o) as f:
+            results.append(json.load(f))
+    assert [r["backend"] for r in results] == ["gloo", "gloo"]
+    assert len(results[0]["graph"]["positions"]) == 12
+    for r in results:
+        assert r["graph"] == r["eager"]
+    assert results[0]["graph"] == results[1]["graph"]
+    assert sum(d["icp_iterations"] for d in results[0]["graph"]["diags"]) > 11
+
+    seq = make_seq(GRAPHED_DURATION_S)
+    one = graphed_on_cpu(ShardedOdometry(worker_config(), n_devices=4, device="cpu"))
+    one.run(seq)
+    assert run_record(one) == results[0]["graph"]
+
+    from _dist_worker import worker_config as j_worker_config
+    from eskf_lio_tpu.io import dataset as j_dataset
+    from eskf_lio_tpu.parallel.sharded_map import ShardedOdometry as JSharded
+
+    j_ref = JSharded(j_worker_config(), n_devices=4)
+    j_ref.run(j_dataset.make_synthetic_sequence(
+        duration=GRAPHED_DURATION_S, points_per_scan=1800, seed=7))
+    np.testing.assert_allclose(np.asarray(results[0]["graph"]["positions"])[:6],
+                               j_ref.positions[:6], atol=2e-2)
 
 
 SMALL_YAML = (

@@ -27,7 +27,6 @@ The captured path itself needs the card: its tests are in
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax.numpy as jnp
 
@@ -44,27 +43,13 @@ from eskf_lio_tpu.map import voxel_map as j_vm
 from eskf_lio_tpu.models import registration as j_reg
 from eskf_lio_tpu.pipeline.odometry import Odometry as JOdometry
 from eskf_lio_tpu.types import Pose as JPose, ProcessedScan as JScan
+from _torch_no_host_read import NoHostRead
 from test_torch_registration import N_SCAN, scan_from, world  # noqa: F401 (fixture)
 from test_torch_voxel_map import assert_maps_equal, rand_cloud
 
 torch.set_num_threads(2)
 
 GRAVITY = (0.0, 0.0, -9.81)
-
-
-class NoHostRead(TorchDispatchMode):
-    """Raises on every op that makes the host wait for a value on the
-    device: a scalar read (`item`, `bool`, `int`, indexing with a 0-dim
-    tensor), `nonzero`, or an index by a bool mask (which runs one)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in (torch.ops.aten._local_scalar_dense.default, torch.ops.aten.nonzero.default):
-            raise AssertionError(f"host read: {func}")
-        if func.__name__.startswith(("index.", "index_put")):
-            indices = args[1] if len(args) > 1 else ()
-            if any(isinstance(i, torch.Tensor) and i.dtype == torch.bool for i in indices):
-                raise AssertionError(f"host read: {func} with a bool mask")
-        return func(*args, **(kwargs or {}))
 
 
 def test_no_host_read_mode_catches_reads():

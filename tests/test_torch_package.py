@@ -33,6 +33,7 @@ torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "eskf_lio_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py",
+    ROOT / "tests" / "_torch_no_host_read.py",
 ]
 FORBIDDEN = ("jax", "jaxlib", "eskf_lio_tpu")
 

@@ -46,7 +46,6 @@ from eskf_lio_torch.pipeline import odometry as t_odo
 from eskf_lio_torch.pipeline.odometry import Odometry as TOdometry
 from eskf_lio_torch.types import ProcessedScan as TProcessed
 from eskf_lio_torch.utils import checkpoint as t_checkpoint
-from eskf_lio_torch.utils import graphs
 from eskf_lio_torch.utils.metrics import ate_rmse
 from eskf_lio_tpu.config import Config as JConfig, ImuConfig as JImu
 from eskf_lio_tpu.io import export as j_export
@@ -54,7 +53,7 @@ from eskf_lio_tpu.ops import voxel as j_vx
 from eskf_lio_tpu.parallel import sharded_map as j_smod
 from eskf_lio_tpu.parallel.sharded_map import ShardedOdometry as JSharded
 from eskf_lio_tpu.utils import checkpoint as j_checkpoint
-from test_torch_graphs import NoHostRead
+from _torch_dist_worker import graphed_on_cpu as worker_graphed_on_cpu
 
 torch.set_num_threads(2)
 
@@ -624,30 +623,16 @@ def test_sharded_odometry_defaults_to_the_card():
 # ---------------------------------------------------------------------------
 
 
-def graphed_on_cpu(config, n_devices: int, monkeypatch, no_read: bool = True) -> TSharded:
+def graphed_on_cpu(config, n_devices: int, no_read: bool = True) -> TSharded:
     """A sharded driver whose scan step is a `GraphedShardedScanStep` over
     CPU buffers, each of its graphs a stand-in for `StepGraph` whose replay
     calls the function the graph would capture: with `no_read`, in select
     mode (every branch and loop pass run, merged by `torch.where`) under
-    `NoHostRead`, which fails on any read of a device value."""
-
-    class Uncaptured:
-        def __init__(self, fn, device, segscan_rows, pool=None):
-            self.fn = fn
-
-        def __call__(self):
-            if no_read:
-                with graphs.select_branches(), NoHostRead():
-                    self.fn()
-            else:
-                self.fn()
-
-    monkeypatch.setattr(t_odo, "StepGraph", Uncaptured)
-    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    `NoHostRead`, which fails on any read of a device value
+    (`tests/_torch_dist_worker.py::graphed_on_cpu`)."""
     odo = TSharded(config, n_devices=n_devices, device="cpu")
     assert not odo.graphed and odo.step_reason == "eager: the step runs on the cpu"
-    odo.scan_step = t_smod.GraphedShardedScanStep(config, odo.mesh)
-    return odo
+    return worker_graphed_on_cpu(odo, no_read)
 
 
 def assert_same_runs(a, b):
@@ -660,13 +645,13 @@ def assert_same_runs(a, b):
         assert torch.equal(x, y), name
 
 
-def test_graphed_sharded_step_reads_nothing_and_matches_eager_and_jax(seq, jax_d4, monkeypatch):
+def test_graphed_sharded_step_reads_nothing_and_matches_eager_and_jax(seq, jax_d4):
     """D = 4: the captured step's function, in select mode under
     `NoHostRead`, over the JAX fixture's four scans: it reads nothing back,
     equals the eager sharded step bit for bit and the JAX `ShardedOdometry`
     within 1e-2 m (the trajectories' bound above)."""
     j, _ = jax_d4
-    graphed = graphed_on_cpu(TCFG, 4, monkeypatch)
+    graphed = graphed_on_cpu(TCFG, 4)
     graphed.run(seq, max_scans=4)
     eager = TSharded(TCFG, n_devices=4, device="cpu")
     eager.run(seq, max_scans=4)
@@ -677,7 +662,7 @@ def test_graphed_sharded_step_reads_nothing_and_matches_eager_and_jax(seq, jax_d
     ]
 
 
-def test_graphed_sharded_step_folds_and_evicts_like_the_eager_step(seq, monkeypatch):
+def test_graphed_sharded_step_folds_and_evicts_like_the_eager_step(seq):
     """D = 4 with every scan inserted, the delta tiers folding and an
     eviction every other scan: both graphs of the step (with and without
     eviction), select mode under `NoHostRead`, equal to the eager step bit
@@ -690,7 +675,7 @@ def test_graphed_sharded_step_folds_and_evicts_like_the_eager_step(seq, monkeypa
     def delta_fill(o):
         folds.append([int((b.d_skey != INT32_MAX).sum()) for b in o.voxmap.blocks])
 
-    graphed = graphed_on_cpu(cfg, 4, monkeypatch)
+    graphed = graphed_on_cpu(cfg, 4)
     graphed.run(seq, max_scans=6)
     eager = TSharded(cfg, n_devices=4, device="cpu")
     eager.run(seq, max_scans=6, on_scan=delta_fill)
@@ -700,7 +685,7 @@ def test_graphed_sharded_step_folds_and_evicts_like_the_eager_step(seq, monkeypa
     assert any(b == 0 < a for prev, now in zip(folds, folds[1:]) for a, b in zip(prev, now))
 
 
-def test_map_read_after_scan_k_is_the_map_of_scan_k(seq, monkeypatch):
+def test_map_read_after_scan_k_is_the_map_of_scan_k(seq):
     """The captured step writes its map blocks in place, and a
     `ShardedVoxelMap` keeps its gathered arrays once read: the driver's map,
     read (gathered) after every scan, must be that scan's map, as the eager
@@ -708,7 +693,7 @@ def test_map_read_after_scan_k_is_the_map_of_scan_k(seq, monkeypatch):
     cfg = dataclasses.replace(TCFG, map_update_translation_sq_threshold=0.0)
     read = {"graph": [], "eager": []}
     for mode in read:
-        odo = graphed_on_cpu(cfg, 4, monkeypatch, no_read=False) if mode == "graph" else TSharded(
+        odo = graphed_on_cpu(cfg, 4, no_read=False) if mode == "graph" else TSharded(
             cfg, n_devices=4, device="cpu")
         odo.run(seq, max_scans=5, on_scan=lambda o, m=read[mode]: m.append(
             [x.clone() for x in o.voxmap]))
@@ -726,13 +711,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_sharded_step_is_eager_under_a_process_group_and_says_why():
+def test_sharded_step_graph_choice_follows_the_backend_and_says_why(monkeypatch):
     """`_make_steps` picks the step by `graph_choice`, from the device and
-    the process group alone: on a CUDA device without a group the captured
-    step; under a group eager (gloo stages its all-reduce through the host),
-    with the reason in `step_reason`."""
+    the process group's backend alone: on a CUDA device without a group and
+    under `nccl` the captured step (under `nccl` the all-reduce is captured
+    inside the GN loop); under `gloo` on a CUDA device eager (gloo stages
+    its all-reduce through the host); on the CPU eager; each with its
+    reason in `step_reason`.  `GraphedShardedScanStep` refuses only the
+    staged case, so a `gloo` group on the CPU may run the captured
+    function."""
     cuda = torch.device("cuda", 0)
-    assert t_smod.graph_choice(cuda)[0] is True
+    alone = t_smod.graph_choice(cuda)
+    assert alone[0] is True and "shard sum is local" in alone[1]
     assert t_smod.graph_choice(torch.device("cpu")) == (False, "eager: the step runs on the cpu")
     assert t_dist.initialize(f"127.0.0.1:{_free_port()}", 1, 0, device="cpu",
                              timeout_s=30.0) == (1, 0)
@@ -740,11 +730,26 @@ def test_sharded_step_is_eager_under_a_process_group_and_says_why():
         graphed, why = t_smod.graph_choice(cuda)
         assert graphed is False and why.startswith("eager: a gloo process group")
         assert "staged through the host" in why
+        assert t_smod.graph_choice(torch.device("cpu")) == (
+            False, "eager: the step runs on the cpu")
         odo = TSharded(TCFG, n_devices=4, device="cpu")
-        assert odo.graphed is False and odo.step_reason == why
+        assert odo.graphed is False and odo.step_reason == "eager: the step runs on the cpu"
         assert not isinstance(odo.scan_step, t_smod.GraphedShardedScanStep)
-        with pytest.raises(RuntimeError, match="only without a process group"):
-            t_smod.GraphedShardedScanStep(TCFG, odo.mesh)
+        with pytest.raises(RuntimeError, match="staged through the host"):
+            t_smod.GraphedShardedScanStep(TCFG, ShardMesh(4, cuda))
+        # accepted on the CPU (its graphs stand-ins that hold the function)
+        monkeypatch.setattr(t_odo, "StepGraph", lambda fn, *a, **k: fn)
+        monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+        assert callable(t_smod.GraphedShardedScanStep(TCFG, odo.mesh).graphs[False])
+        # an nccl group (this CPU build of torch has no NCCL: its backend's
+        # name stands in for it)
+        monkeypatch.setattr(torch.distributed, "get_backend", lambda *a, **k: "nccl")
+        graphed, why = t_smod.graph_choice(cuda)
+        assert graphed is True and why.startswith("graph: under the nccl process group")
+        assert "captured inside the GN loop" in why
+        assert t_smod.graph_choice(torch.device("cpu"))[0] is False
+        assert not t_dist.staged(cuda) and not t_dist.staged(torch.device("cpu"))
     finally:
+        monkeypatch.undo()
         t_dist.shutdown(wait=False)
-    assert t_smod.graph_choice(cuda)[0] is True
+    assert t_smod.graph_choice(cuda) == alone
