@@ -19,6 +19,10 @@
    function.  Beside kernel A's time it prints the duration of an empty
    <<<1,32>>> kernel, the least any launch takes; and it times kernel B
    against `index_add_` at the shape of `voxel_map.insert`'s per-voxel sums.
+   `light_shapes`: both kernels at the bench's LIGHT shapes against their
+   plain versions (B over a real LIGHT scan's moments at [24,576, 10] and its
+   insert rows at [12,288, 10], also against `index_add_`; A at N = 12,288),
+   with device times and bounds.
    `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
    process of its own, kernel B's values and kernel A's rows and mask in
    host memory registered for the card up to their last byte, where a load
@@ -117,7 +121,16 @@
    all on one thread.  `--eager` (40 rounds, then 6): the same loop with no
    graph, two eager steps a pair, the reproducer of kernel B's read past
    the end of its values (ROADMAP.md, queue 3).
-7. Prints the kernels' JSON line, the nvidia-smi line, and last
+7. `bench`: `python -m eskf_lio_torch.bench` in a process of its own, as a
+   user runs it, with a budget that lets its four phases finish (the LIGHT
+   and HEAVY replay series on the full 13 s sequence, 64 timed scans each;
+   the stage breakdown on the warm HEAVY map; the C++ reference filter):
+   four JSON lines, each a superset of the one before, the last holding the
+   JAX bench's keys and this card's nvidia-smi line, convergence >= 0.9,
+   ATE <= 1.0 cm (LIGHT) and <= 2.5 cm (HEAVY), all seven stages timed, and
+   the timed halves' launches counted on the device: kernel A once per GN
+   iteration, kernel B twice per update row.
+8. Prints the kernels' JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}} — only when every phase passed.
 
 `--kernels-only` stops after phase 2 and prints no result line (a short run
@@ -175,14 +188,6 @@ class SmokeFailure(Exception):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -585,7 +590,7 @@ def kernel_bounds_phase() -> dict:
     to their last byte (a load past the end is an illegal address there):
     kernel B's values at N a multiple of the tile rows, head rows against
     the plain version; kernel A's four row arrays and mask at N = 16,384,
-    8,192 and two ragged N, its sums against the plain version."""
+    12,288, 8,192 and two ragged N, its sums against the plain version."""
     proc = subprocess.run([sys.executable, "-m", "eskf_lio_torch.utils.kernel_bounds"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     line = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")]
@@ -673,65 +678,6 @@ def control_flow_phase(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def heavy_config():
-    from eskf_lio_torch.config import Config, ImuConfig
-
-    # bench.py:102-112, HEAVY (bench.py:79-82)
-    return Config(
-        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)),
-        translation_noise=1e-3,
-        rotation_noise=3e-4,
-        max_raw_points=131072,
-        max_scan_points=32768,
-        max_imu_per_scan=64,
-        hash_capacity_log2=19,
-    )
-
-
-def bench_sequence(n_scans: int):
-    import numpy as np
-
-    from eskf_lio_torch.io import dataset
-
-    # bench.py:115-123, cut in duration only: n_scans = duration * 10 - 1
-    return dataset.make_synthetic_sequence(
-        duration=(n_scans + 1) / 10.0 + 1e-6, points_per_scan=120000, seed=11,
-        imu_noise_gyro=4.9e-3, imu_noise_accel=0.0206,
-        gyro_bias=np.array([0.002, -0.001, 0.0015]),
-        accel_bias=np.array([0.02, -0.03, 0.01]),
-    )
-
-
-def start_replay(dev, config, init_scan, graphed: bool = True):
-    """The user's entry points: the filter state, the map with the first
-    scan inserted, and the replay runner (None when not `graphed`)."""
-    import torch
-
-    from eskf_lio_torch.map import voxel_map as vm
-    from eskf_lio_torch.models import eskf
-    from eskf_lio_torch.pipeline import odometry as odo
-    from eskf_lio_torch.pipeline import replay
-
-    init_step = odo.make_init_step(config, dev)
-    step = replay.make_replay_step(config, dev) if graphed else None
-    state = eskf.init_state(config, dev)
-    voxmap = vm.VoxelMap.create(config.hash_capacity, config.map_delta_capacity, device=dev)
-    voxmap, _ = init_step(voxmap, init_scan)
-    return step, (state, voxmap, torch.eye(3, device=dev), torch.zeros(3, device=dev))
-
-
-def run_rows(step, carry, packed, rows: slice):
-    """Replay rows `rows` of the packed sequence; (carry, Rs, ts, diags)."""
-    _, chunks, scans, evicts, updates, _ = packed
-    *carry, Rs, ts, diags = step(
-        *carry,
-        type(chunks)(*(x[rows] for x in chunks)),
-        type(scans)(*(x[rows] for x in scans)),
-        evicts[rows], updates[rows],
-    )
-    return carry, Rs, ts, diags
-
-
 def sync_sites(caught, n: int) -> dict:
     """torch's sync debug mode warns at each call that waits for the device
     (a blocking upload included): the warnings by calling line, per scan."""
@@ -761,6 +707,7 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
     import numpy as np
     import torch
 
+    from eskf_lio_torch.bench import run_rows, start_replay
     from eskf_lio_torch.map import voxel_map as vm
     from eskf_lio_torch.pipeline import replay
     from eskf_lio_torch.utils.metrics import ate_rmse
@@ -859,6 +806,7 @@ def eager_rows(core, carry, packed, rows: slice):
 
 def eager_start(dev, config, init_scan):
     """The eager step and the carry after the init scan."""
+    from eskf_lio_torch.bench import start_replay
     from eskf_lio_torch.pipeline import odometry as odo
 
     _, carry = start_replay(dev, config, init_scan, graphed=False)
@@ -961,6 +909,7 @@ def graph_phase(dev, config, packed, e2e: dict, eager_busy_ms: float) -> dict:
     import numpy as np
     import torch
 
+    from eskf_lio_torch.bench import run_rows, start_replay
     from eskf_lio_torch.pipeline import replay
 
     b_total = packed[1].dt.shape[0]
@@ -1054,6 +1003,8 @@ def eager_scan_step(config, dev):
 
 def stream_config():
     """HEAVY with the eviction schedule pulled inside a 4 s run."""
+    from eskf_lio_torch.bench import heavy_config
+
     return dataclasses.replace(
         heavy_config(), remove_period=STREAM_REMOVE_PERIOD_S,
         remove_distance_threshold=STREAM_REMOVE_DISTANCE_M,
@@ -1332,6 +1283,7 @@ def cli_phase(kernels) -> dict:
     """The command line in process: --stream on 2 s of the synthetic
     simulator at HEAVY capacities, with every artifact it can write."""
     from eskf_lio_torch import cli
+    from eskf_lio_torch.bench import heavy_config
     from eskf_lio_torch.config import load_config
     from eskf_lio_torch.io import export
 
@@ -1431,6 +1383,75 @@ def slice_kernel_phase(dev, config, scan_points) -> dict:
     )
     res = {"gn_normal_eq": a, "segscan": b, "tolerance": {"gn": GN_TOL, "seg": SEG_TOL}}
     print("slice_shapes " + json.dumps(res))
+    return res
+
+
+def light_kernel_phase(dev) -> dict:
+    """Both kernels at the shapes the bench's LIGHT series gives them,
+    against their plain versions with the tolerances of the kernel phases:
+    kernel B over a real LIGHT scan's moments at [24,576, 10] (the
+    downsampler) and over its insert rows at [12,288, 10] (also against
+    `index_add_`), kernel A at LIGHT's N = 12,288 align points.  Both of
+    B's N are multiples of the tile rows, the case of kernel B's read past
+    the end of its values."""
+    import torch
+
+    from eskf_lio_torch.bench import LIGHT, bench_sequence, make_config
+    from eskf_lio_torch.config import Config
+    from eskf_lio_torch.ops import gn_normal_eq as gn
+    from eskf_lio_torch.ops import segscan
+
+    config = make_config(LIGHT["max_raw_points"], LIGHT["max_scan_points"],
+                         gn_backend=Config.gn_backend)
+    seq = bench_sequence(2, LIGHT["points_per_scan"])
+    scan = torch.as_tensor(seq.scans[1].points[: config.max_raw_points], device=dev)
+
+    n_a = config.align_capacity
+    args = gn_inputs(n_a, 41, dev)
+    out_k, out_p = gn.normal_equations_rotated(*args), gn.normal_equations_rotated_ref(*args)
+    abs_a, rel_a = gn_rel_err(args, out_k, out_p)
+    print(f"kernel A [LIGHT] N={n_a}: max_abs_err={abs_a:.3e} rel_err={rel_a:.3e} tol={GN_TOL:g}")
+    check(rel_a <= GN_TOL, "kernel A disagrees with its plain version at LIGHT's align budget")
+    check(int(out_k[2]) == int(args[5].sum()) == int(out_p[2]),
+          "kernel A's count is wrong at LIGHT's align budget")
+    a = dict(
+        n=n_a, max_abs_err=abs_a, rel_err=rel_a,
+        ms=device_ms(lambda: gn.normal_equations_rotated(*args)),
+        plain_ms=device_ms(lambda: gn.normal_equations_rotated_ref(*args)),
+        **bound(n_a * ((3 + 6 + 3 + 6) * 4 + 1) + 9 * 4 + 43 * 4,
+                GN_FLOP_PER_POINT * int(args[5].sum())),
+    )
+
+    keys, vals = scan_moments(scan, config.max_raw_points, dev)
+    n_d, w = vals.shape
+    check((n_d, w) == (LIGHT["max_raw_points"], 10), f"LIGHT's moments are [{n_d}, {w}]")
+    down = dict(
+        n=n_d, w=w, max_abs_err=seg_compare(keys, vals, "LIGHT: real scan"),
+        ms=device_ms(lambda: segscan.segsum_sorted(keys, vals)),
+        plain_ms=device_ms(lambda: segscan.segsum_sorted_ref(keys, vals)),
+        **bound(n_d * 4 + 2 * n_d * w * 4, n_d * w),
+    )
+
+    skey_s, raw_s, head, seg_id = insert_rows(dev, config, scan)
+    n_i = raw_s.shape[0]
+    check(raw_s.shape == (LIGHT["max_scan_points"], 10), f"LIGHT's insert rows are {raw_s.shape}")
+    abs_i = seg_compare(skey_s, raw_s, "LIGHT: insert rows")
+    out_b = segscan.segsum_sorted(skey_s, raw_s)
+    out_x = torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)
+    scale = torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s.abs())
+    rows = seg_id[head]
+    rel_x = ((out_b[head] - out_x[rows]).abs() / scale[rows].clamp(min=1e-30)).max().item()
+    check(rel_x <= SEG_TOL, "kernel B disagrees with index_add_ at LIGHT's insert shape")
+    ins = dict(
+        n=n_i, w=w, voxels=int(head.sum()), max_abs_err=abs_i, rel_err_index_add=rel_x,
+        ms=device_ms(lambda: segscan.segsum_sorted(skey_s, raw_s)),
+        plain_ms=device_ms(lambda: segscan.segsum_sorted_ref(skey_s, raw_s)),
+        library_ms=device_ms(lambda: torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)),
+        **bound(n_i * 4 + 2 * n_i * w * 4, n_i * w),
+    )
+    res = {"gn_normal_eq": a, "segscan_downsample": down, "segscan_insert": ins,
+           "tolerance": {"gn": GN_TOL, "seg": SEG_TOL}}
+    print("light_shapes " + json.dumps(res))
     return res
 
 
@@ -1656,6 +1677,7 @@ def dist_phase(seq, sharded) -> dict:
     card (`gloo`), against the one-process run of the sharded phase."""
     import numpy as np
 
+    from eskf_lio_torch.bench import heavy_config
     from eskf_lio_torch.config import load_config
     from eskf_lio_torch.io import dataset, export
     from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
@@ -2014,6 +2036,73 @@ def graph_stress_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the bench, as a user runs it
+# ---------------------------------------------------------------------------
+
+# a budget that lets all four phases finish (the bench skips what is left
+# once it runs out), and the keys the JAX bench's last line holds
+BENCH_BUDGET_S = 600
+BENCH_TIMEOUT_S = 600
+BENCH_LAST_LINE_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "vs_realtime", "series", "light", "heavy",
+    "workload", "stages_ms", "heavy_ref", "light_ref", "baseline_source", "gn_backend",
+    "elapsed_s",
+)
+BENCH_STAGES = ("predict", "preprocess", "align", "align_iters", "insert", "evict", "full_step")
+BENCH_TIMED_SCANS = 64
+BENCH_MAX_ATE_CM = {"light": 1.0, "heavy": 2.5}  # the JAX bench: 0.45 and 1.81
+
+
+def bench_phase(smi: str) -> dict:
+    """`python -m eskf_lio_torch.bench` in a process of its own: four lines
+    (light, heavy, stages, reference), each a superset of the one before,
+    the last with the JAX bench's keys and the card's nvidia-smi line; 64
+    timed scans a series, convergence, ATE, every stage timed, and the
+    launches of the timed halves counted on the device: kernel A once per
+    GN iteration, kernel B twice per update row."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("ESKF_BENCH_ONLY", "ESKF_BENCH_BUDGET_S", "ESKF_GN_BACKEND")}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "eskf_lio_torch.bench", "--budget-s", str(BENCH_BUDGET_S)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the bench exited {proc.returncode}: "
+          f"{(proc.stderr.strip().splitlines() or ['no output'])[-1][:300]}")
+    lines = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+    for line in lines:
+        print("bench " + json.dumps(line))
+    print(f"bench: {len(lines)} lines in {seconds:.1f} s")
+    check([l.get("series") for l in lines] == ["light", "heavy", "heavy", "heavy"],
+          f"the bench printed {len(lines)} lines, not light, heavy, stages, reference")
+    check(all(set(a) <= set(b) for a, b in zip(lines, lines[1:])),
+          "a bench line lacks a key of the line before it")
+    last = lines[-1]
+    missing = set(BENCH_LAST_LINE_KEYS) - set(last)
+    check(not missing and "note" not in last, f"the bench's last line lacks {sorted(missing)}")
+    check(last["device"] == smi, f"the bench names its device {last['device']!r}, not {smi!r}")
+    for name, max_ate in BENCH_MAX_ATE_CM.items():
+        s = last[name]
+        check(s["timed_scans"] == BENCH_TIMED_SCANS,
+              f"{name}: {s['timed_scans']} timed scans, not {BENCH_TIMED_SCANS}")
+        check(s["icp_convergence_rate"] >= MIN_CONVERGENCE,
+              f"{name}: convergence {s['icp_convergence_rate']} < {MIN_CONVERGENCE}")
+        check(s["ate_rmse_cm"] <= max_ate, f"{name}: ATE {s['ate_rmse_cm']} cm > {max_ate} cm")
+        check(s["launches"]["gn_normal_eq"] == s["gn_iterations"],
+              f"{name}: kernel A launches {s['launches']['gn_normal_eq']} != GN iterations "
+              f"{s['gn_iterations']}")
+        check(s["launches"]["segscan"] == 2 * s["update_rows"],
+              f"{name}: kernel B launches {s['launches']['segscan']} != 2 x update rows "
+              f"{2 * s['update_rows']}")
+    stages = last["stages_ms"]
+    check(set(stages) == set(BENCH_STAGES) and all(stages[k] > 0 for k in BENCH_STAGES),
+          f"the stage breakdown is incomplete: {stages}")
+    return {"last_line": last, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2029,6 +2118,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
 
+    from eskf_lio_torch.bench import bench_sequence, heavy_config, nvidia_smi_line
     from eskf_lio_torch.ops import _cuda, gn_normal_eq, segscan
     from eskf_lio_torch.utils import graphs
 
@@ -2060,6 +2150,7 @@ def main() -> int:
         # with the other kernel timings: torch.profiler's traces of single
         # kernels came back short after the replay's long trace
         slices = slice_kernel_phase(dev, config, scan0)
+        light_shapes = light_kernel_phase(dev)
         res_b["bounds"] = kernel_bounds_phase()
         from eskf_lio_torch.pipeline import replay
 
@@ -2084,6 +2175,9 @@ def main() -> int:
         nccl = nccl_phase(dev, seq, kernels, sharded, sharded_res)
         by_path["sharded_nccl"] = nccl["graph"]["launches"]
         stress = graph_stress_phase()
+        bench = bench_phase(smi)
+        by_path["bench_light"] = bench["last_line"]["light"]["launches"]
+        by_path["bench_heavy"] = bench["last_line"]["heavy"]["launches"]
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2116,6 +2210,8 @@ def main() -> int:
         "empty_launch_ms": res_a["empty_launch_ms"],
         # both kernels at the shapes a shard of the four-way map gives them
         "slice_shapes": slices,
+        # both kernels at the shapes of the bench's LIGHT series
+        "light_shapes": light_shapes,
         "insert_shape": {"segscan_ms": res_b["insert_shape_ms"],
                          "call_ms": res_b["insert_shape_call_ms"],
                          "bound_ms": res_b["insert_shape_bound_ms"],
@@ -2151,6 +2247,13 @@ def main() -> int:
             "reduce_fn_ms": nccl["reduce_fn_ms"],
         },
         "graph_stress": stress,
+        # `python -m eskf_lio_torch.bench`: its last line, less the series'
+        # launches (in launches_by_path) and the reference's stage times
+        "bench": {k: bench["last_line"][k] for k in (
+            "value", "vs_baseline", "vs_realtime", "baseline_source", "stages_ms")}
+        | {s: {k: v for k, v in bench["last_line"][s].items() if k != "launches"}
+           for s in ("light", "heavy")}
+        | {"seconds": bench["seconds"]},
         # both kernels over inputs that end a registered host range (phase 2)
         "kernel_bounds": res_b["bounds"],
     }

@@ -8,7 +8,8 @@ queue and scan packing to Python.  Builds on demand with the repo Makefile;
 touches the device.
 
 The port loads a library that only it writes: `build/native/
-libeskf_runtime-<hash of the sources>.so`, made by `make` in a scratch copy
+libeskf_runtime-<hash>.so`, keyed by the sources, the compiler's version
+and the host's CPU, made by `make` in a scratch copy
 of `native/`'s Makefile and source and moved into place with one atomic
 rename.  The JAX package builds `native/libeskf_runtime.so` in place and
 without a lock, so a process that loads that file while a JAX process's
@@ -16,7 +17,9 @@ without a lock, so a process that loads that file while a JAX process's
 raises "file too short" (1 of 30 starts of both packages' `load()` together
 on a fresh checkout).  Processes of the port that start together (a multi-process run) build under
 an exclusive file lock (`build/native/.build.lock`), so one process builds
-and the others wait for it.
+and the others wait for it.  The bench's reference filter
+(`native/ref_filter.cpp`) is built the same way (`ref_filter_path`), at
+`build/native/ref_filter-<hash>`: the port never writes into `native/`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import platform
+import shlex
 import shutil
 import subprocess
 import tempfile
@@ -35,6 +40,7 @@ import numpy as np
 _NATIVE_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "native"))
 _SOURCES = ("Makefile", "eskf_runtime.cpp")
 _TARGET = "libeskf_runtime.so"
+_REF_FILTER_SOURCES = ("Makefile", "ref_filter.cpp")
 _BUILD_DIR = os.path.abspath(os.path.join(_NATIVE_DIR, "..", "build", "native"))
 
 _lib: Optional[ctypes.CDLL] = None
@@ -44,32 +50,90 @@ class NativeRuntimeUnavailable(RuntimeError):
     """The native library is not built and cannot be built on this host."""
 
 
-def library_path() -> str:
-    """Where the port's build of the library lies, keyed by its sources."""
-    digest = hashlib.sha256()
-    for name in _SOURCES:
+def _compiler(cxx: Optional[str]) -> str:
+    """The compiler `make` runs: `cxx` when given, else the environment's
+    `CXX`, else make's own `g++`."""
+    return cxx or os.environ.get("CXX") or "g++"
+
+
+def _host_key(cxx: str) -> bytes:
+    """What a build depends on beside its sources: the compiler's version
+    and this host's CPU (the Makefile builds with `-march=native`).  A copy
+    of the tree may carry `build/` to another host, whose CPU may lack
+    what the binary uses (SIGILL) and whose compiler differs: such a
+    binary lies under another name there and is never taken."""
+    try:
+        version = subprocess.run([*shlex.split(cxx), "--version"], capture_output=True,
+                                 timeout=30).stdout
+    except (OSError, subprocess.SubprocessError):
+        version = b"no compiler"
+    cpu = [platform.machine().encode()]
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo", "rb") as f:
+            lines = f.read().splitlines()
+        for field in (b"model name", b"flags"):
+            cpu += [l for l in lines if l.startswith(field)][:1]
+    return b"\n".join([version, *cpu])
+
+
+def _built_path(target: str, sources: tuple[str, ...], cxx: Optional[str] = None) -> str:
+    """Where the port's build of a `native/` make target lies, keyed by its
+    sources, the compiler and the host's CPU:
+    `build/native/<stem>-<hash><suffix>`."""
+    digest = hashlib.sha256(_host_key(_compiler(cxx)))
+    for name in sources:
         with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
             digest.update(f.read())
-    return os.path.join(_BUILD_DIR, f"libeskf_runtime-{digest.hexdigest()[:16]}.so")
+    stem, dot, suffix = target.partition(".")
+    return os.path.join(_BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}{dot}{suffix}")
 
 
-def _try_build(out: str) -> bool:
-    """`make` the library in a scratch copy of the sources and rename it to
-    `out`: no reader ever sees a half-written file there."""
+def library_path() -> str:
+    """Where the port's build of the library lies (see `_built_path`)."""
+    return _built_path(_TARGET, _SOURCES)
+
+
+def _try_build(target: str, sources: tuple[str, ...], out: str, cxx: Optional[str]) -> bool:
+    """`make` the target in a scratch copy of the sources and rename it to
+    `out`: no reader ever sees a half-written file there.  `cxx`, when
+    given, replaces the environment's `CXX`."""
     try:
         with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-            for name in _SOURCES:
+            for name in sources:
                 shutil.copy(os.path.join(_NATIVE_DIR, name), tmp)
             subprocess.run(
-                ["make", "-C", tmp, _TARGET],
+                ["make", "-C", tmp, target, *([f"CXX={cxx}"] if cxx else [])],
                 check=True,
                 capture_output=True,
                 timeout=120,
             )
-            os.replace(os.path.join(tmp, _TARGET), out)
+            os.replace(os.path.join(tmp, target), out)
         return True
     except (OSError, subprocess.SubprocessError):
         return False
+
+
+def _build(target: str, sources: tuple[str, ...], build_if_missing: bool = True,
+           cxx: Optional[str] = None) -> Optional[str]:
+    """The path of the port's build of `target`, building it under the
+    lock if it is missing; None if it is missing and cannot be built."""
+    path = _built_path(target, sources, cxx)
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not os.path.exists(path) and build_if_missing:
+            if not _try_build(target, sources, path, cxx):
+                return None
+    return path if os.path.exists(path) else None
+
+
+def ref_filter_path() -> Optional[str]:
+    """The reference-algorithm filter (`native/ref_filter.cpp`, run by the
+    bench), built if missing; None without a toolchain.  Its compiler is
+    `g++` on the PATH whatever `CXX` the environment sets: a `CXX` set for
+    another toolchain may lack OpenMP (no `libgomp.spec`), which
+    `ref_filter` needs.  The library keeps the environment's compiler."""
+    return _build("ref_filter", _REF_FILTER_SOURCES, cxx="g++")
 
 
 def load(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
@@ -77,15 +141,9 @@ def load(build_if_missing: bool = True) -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    path = library_path()
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    with open(os.path.join(_BUILD_DIR, ".build.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if not os.path.exists(path) and build_if_missing:
-            if not _try_build(path):
-                return None
-        if not os.path.exists(path):
-            return None
+    path = _build(_TARGET, _SOURCES, build_if_missing)
+    if path is None:
+        return None
     lib = ctypes.CDLL(path)
 
     lib.spsc_create.restype = ctypes.c_void_p

@@ -50,11 +50,10 @@ import json
 import sys
 import time
 
-import numpy as np
 import torch
 
+from eskf_lio_torch import bench
 from eskf_lio_torch.config import Config, ImuConfig
-from eskf_lio_torch.io import dataset
 from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.models import eskf
 from eskf_lio_torch.ops import segscan
@@ -82,26 +81,20 @@ class Mismatch(AssertionError):
 
 
 def make_config(size: str) -> Config:
-    """`small`: the port's test size; `heavy`: HEAVY of `bench.py:79-82,
-    102-112`, as `chip_smoke.py` drives it."""
+    """`small`: the port's test size; `heavy`: the bench's HEAVY
+    (`eskf_lio_torch/bench.py`), as `chip_smoke.py` drives it."""
     if size == "small":
-        kw = dict(translation_noise=1e-4, rotation_noise=3e-5, max_raw_points=8192,
-                  max_scan_points=4096, max_imu_per_scan=48, hash_capacity_log2=16)
+        config = Config(imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), translation_noise=1e-4,
+                        rotation_noise=3e-5, max_raw_points=8192, max_scan_points=4096,
+                        max_imu_per_scan=48, hash_capacity_log2=16)
     else:
-        kw = dict(translation_noise=1e-3, rotation_noise=3e-4, max_raw_points=131072,
-                  max_scan_points=32768, max_imu_per_scan=64, hash_capacity_log2=19)
-    return Config(imu=ImuConfig(gravity=(0.0, 0.0, -9.81)),
-                  remove_distance_threshold=EVICT_DISTANCE_M, **kw)
+        config = bench.heavy_config()
+    return dataclasses.replace(config, remove_distance_threshold=EVICT_DISTANCE_M)
 
 
 def make_sequence(size: str, n_scans: int):
-    points = 8000 if size == "small" else 120000
-    return dataset.make_synthetic_sequence(
-        duration=(n_scans + 2) / 10.0 + 1e-6, points_per_scan=points, seed=11,
-        imu_noise_gyro=4.9e-3, imu_noise_accel=0.0206,
-        gyro_bias=np.array([0.002, -0.001, 0.0015]),
-        accel_bias=np.array([0.02, -0.03, 0.01]),
-    )
+    """The bench's sequence, cut to `n_scans` + 1 scans."""
+    return bench.bench_sequence(n_scans + 1, 8000 if size == "small" else 120000)
 
 
 @dataclasses.dataclass

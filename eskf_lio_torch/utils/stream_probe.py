@@ -29,11 +29,10 @@ import sys
 import threading
 import time
 
-import numpy as np
 import torch
 
+from eskf_lio_torch.bench import bench_sequence
 from eskf_lio_torch.config import Config, ImuConfig
-from eskf_lio_torch.io import dataset
 from eskf_lio_torch.io.dataset import LidarRecord
 from eskf_lio_torch.pipeline.odometry import Odometry
 from eskf_lio_torch.pipeline.stream import StreamingRunner, merged_stream
@@ -101,12 +100,7 @@ def main(argv: list[str] | None = None) -> int:
         max_raw_points=raw_cap, max_scan_points=raw_cap // 4, max_imu_per_scan=64,
         hash_capacity_log2=cap_log2,
     )
-    seq = dataset.make_synthetic_sequence(
-        duration=(scans + 1) / 10.0 + 1e-6, points_per_scan=points, seed=11,
-        imu_noise_gyro=4.9e-3, imu_noise_accel=0.0206,
-        gyro_bias=np.array([0.002, -0.001, 0.0015]),
-        accel_bias=np.array([0.02, -0.03, 0.01]),
-    )
+    seq = bench_sequence(scans, points)
     if device.type == "cuda":
         print(f"device: {torch.cuda.get_device_name(0)}")
     run_variant("sync", config, seq, device)  # warm-up, not reported

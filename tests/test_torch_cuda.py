@@ -8,7 +8,7 @@ graphed replay and the graphed sharded driver against the eager step bit for
 bit (also under a one-process `nccl` group, whose all-reduces the graph
 holds), and short rounds of the graph stress test (`utils/graph_stress.py`);
 both kernels over inputs that end a registered host range
-(`utils/kernel_bounds.py`).
+(`utils/kernel_bounds.py`); the bench's LIGHT series (`eskf_lio_torch/bench.py`).
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -226,7 +226,7 @@ def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(kernel_bounds_r
     rc, res, err = kernel_bounds_run
     assert rc == 0, err[-2000:]
     shapes = res["shapes"]
-    assert len(shapes) == 5
+    assert len(shapes) == 7
     # tolerance: relative to the sum of absolute values, which is at most the
     # longest run's length (values in [0, 1), a key run over 40 % of the rows)
     assert all(s["max_abs_err"] <= TOL * 0.4 * s["n"] for s in shapes)
@@ -235,13 +235,14 @@ def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(kernel_bounds_r
 def test_gn_kernel_reads_nothing_past_the_end_of_its_rows(kernel_bounds_run):
     """The same module's kernel-A case: the four row arrays and the mask,
     each in host memory registered up to its last byte, at the main path's
-    N = 16,384 and a shard's 8,192 (16-byte loads) and at two ragged N (the
+    N = 16,384, LIGHT's 12,288 and a shard's 8,192 (16-byte loads) and at
+    two ragged N (the
     last chunk's 4-byte loads): no fault, and the sums within `TOL` of the
     plain version, relative to the sum of the terms' absolute values (the
     tolerance of `test_gn_kernel_matches_plain`)."""
     rc, res, err = kernel_bounds_run
     assert rc == 0, err[-2000:]
-    assert [s["n"] for s in res["gn_shapes"]] == [16384, 8192, 8191, 1000]
+    assert [s["n"] for s in res["gn_shapes"]] == [16384, 12288, 8192, 8191, 1000]
     assert all(s["rel_err"] <= TOL for s in res["gn_shapes"])
 
 
@@ -731,3 +732,26 @@ def test_cli_scan_step_under_an_nccl_group_is_the_graph(dev, tmp_path):
     assert proc.returncode == 0, proc.stderr[-2000:]
     line = [l for l in proc.stdout.splitlines() if l.startswith("scan step:")]
     assert line and line[0].startswith("scan step: graph: under the nccl process group"), line
+
+
+def test_bench_light_series_on_the_card(dev, capsys, monkeypatch):
+    """`eskf_lio_torch.bench.main` with ESKF_BENCH_ONLY=light: the LIGHT
+    series on the full 13 s sequence through the captured step, one line
+    naming the card; 64 timed scans, convergence >= 0.9, ATE <= 1.0 cm (the
+    JAX bench: 0.45), and the timed half's launches counted on the device:
+    kernel A once per GN iteration, kernel B twice per update row."""
+    import json
+
+    from eskf_lio_torch import bench
+
+    monkeypatch.setenv("ESKF_BENCH_ONLY", "light")
+    monkeypatch.delenv("ESKF_GN_BACKEND", raising=False)
+    assert bench.main(["--budget-s", "600"]) == 0
+    lines = [json.loads(l) for l in capsys.readouterr().out.splitlines() if l.startswith("{")]
+    assert len(lines) == 1 and lines[0]["series"] == "light"
+    assert lines[0]["device"] == bench.nvidia_smi_line()
+    light = lines[0]["light"]
+    assert light["timed_scans"] == 64 and light["update_rows"] == 64
+    assert light["icp_convergence_rate"] >= 0.9 and light["ate_rmse_cm"] <= 1.0
+    assert light["launches"] == {"gn_normal_eq": light["gn_iterations"], "segscan": 128}
+    assert lines[0]["value"] == light["scans_per_sec"] > 0
