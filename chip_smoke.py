@@ -23,6 +23,12 @@
    plain versions (B over a real LIGHT scan's moments at [24,576, 10] and its
    insert rows at [12,288, 10], also against `index_add_`; A at N = 12,288),
    with device times and bounds.
+   `tool_shapes`: both kernels at the shapes only the tools give them (A at
+   `probe_align_parts`'s N = 32,768; B over a real scan's insert rows under
+   `ate_matrix`'s `budget48k` budget at [49,152, 10], also against
+   `index_add_`, and over `profile_preprocess`'s input at [131,072, 10],
+   nearly every key its own segment, also against `torch.segment_reduce`),
+   with device times, call times and bounds.
    `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
    process of its own, kernel B's values and kernel A's rows and mask in
    host memory registered for the card up to their last byte, where a load
@@ -130,7 +136,22 @@
    ATE <= 1.0 cm (LIGHT) and <= 2.5 cm (HEAVY), all seven stages timed, and
    the timed halves' launches counted on the device: kernel A once per GN
    iteration, kernel B twice per update row.
-8. Prints the kernels' JSON line, the nvidia-smi line, and last
+8. `tools`: each of the ten modules of `eskf_lio_torch/tools/` (the JAX
+   package's `tools/*.py`) as a user runs it, `python -m
+   eskf_lio_torch.tools.<name>`, in a process of its own under a timeout, at
+   the JAX script's sizes (`ate_matrix` with `exact budget48k`: `base` is
+   the bench's HEAVY series): exit 0, every line in its schema, every time
+   finite and above 0 (a time less an empty graph's replays: 0 or more,
+   its raw time above 0), the card's nvidia-smi line last; ATE <= 1.0 cm
+   (`light_stages`, `ate_check --tn 1e-3 --rn 3e-4`, the bench's update
+   noises) and <= 2.5 cm (`ate_matrix`), convergence >= 0.9 where a series
+   reports it; `ate_check` at its own noises, where the filter loses the
+   track in both packages, within 2 % of the JAX package's raw ATE on the
+   same run; and for the tools that replay
+   (`light_stages`, `probe_adaptive`'s warm-up, `ate_matrix`,
+   `bench_scaling_mesh`) the launches counted on the device: kernel A
+   D x Σ GN iterations, kernel B (D + 1) x update scans (D = 1 unsharded).
+9. Prints the kernels' JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}} — only when every phase passed.
 
 `--kernels-only` stops after phase 2 and prints no result line (a short run
@@ -148,6 +169,7 @@ import dataclasses
 import hashlib
 import io
 import json
+import math
 import os
 import re
 import socket
@@ -1386,6 +1408,60 @@ def slice_kernel_phase(dev, config, scan_points) -> dict:
     return res
 
 
+def a_times(args) -> dict:
+    """Kernel A's device time (torch.profiler), its wrapper's call time
+    between CUDA events, its plain version's time and its bound, on `args`."""
+    from eskf_lio_torch.ops import gn_normal_eq as gn
+
+    n = args[0].shape[0]
+    return dict(
+        # the wrapper's call time first: a profiler run leaves host threads busy
+        call_ms=event_ms(lambda: gn.normal_equations_rotated(*args)),
+        ms=device_ms(lambda: gn.normal_equations_rotated(*args)),
+        plain_ms=device_ms(lambda: gn.normal_equations_rotated_ref(*args)),
+        library_ms=None,  # no single PyTorch call computes JᵀWJ/JᵀWr
+        **bound(n * ((3 + 6 + 3 + 6) * 4 + 1) + 9 * 4 + 43 * 4,
+                GN_FLOP_PER_POINT * int(args[5].sum())),
+    )
+
+
+def b_times(keys, vals, library) -> dict:
+    """Kernel B's device time, call time, plain version's time and bound on
+    (keys, vals), and the time of `library`, the one PyTorch call that
+    computes the same sums (timed only as a yardstick)."""
+    from eskf_lio_torch.ops import segscan
+
+    n, w = vals.shape
+    return dict(
+        call_ms=event_ms(lambda: segscan.segsum_sorted(keys, vals)),
+        ms=device_ms(lambda: segscan.segsum_sorted(keys, vals)),
+        plain_ms=device_ms(lambda: segscan.segsum_sorted_ref(keys, vals)),
+        library_ms=device_ms(library),
+        # keys and values read once, [N, W] written once; one add per value
+        **bound(n * 4 + 2 * n * w * 4, n * w),
+    )
+
+
+def segment_reduce_call(keys, vals):
+    """`torch.segment_reduce` (sum by lengths) over the segments of sorted
+    `keys`: kernel B's sums, compacted to one row a segment, checked
+    against the kernel's head rows."""
+    import torch
+
+    from eskf_lio_torch.ops import segscan
+
+    n = keys.shape[0]
+    head = torch.ones(n, dtype=torch.bool, device=keys.device)
+    head[1:] = keys[1:] != keys[:-1]
+    starts = torch.nonzero(head)[:, 0]
+    lengths = torch.diff(torch.cat([starts, torch.tensor([n], device=keys.device)]))
+    lib = torch.segment_reduce(vals, "sum", lengths=lengths)
+    scale = torch.segment_reduce(vals.abs(), "sum", lengths=lengths).clamp(min=1e-30)
+    rel = ((lib - segscan.segsum_sorted(keys, vals)[starts]).abs() / scale).max().item()
+    check(rel <= SEG_TOL, f"kernel B disagrees with torch.segment_reduce: {rel:.3e}")
+    return lambda: torch.segment_reduce(vals, "sum", lengths=lengths)
+
+
 def light_kernel_phase(dev) -> dict:
     """Both kernels at the shapes the bench's LIGHT series gives them,
     against their plain versions with the tolerances of the kernel phases:
@@ -1414,23 +1490,13 @@ def light_kernel_phase(dev) -> dict:
     check(rel_a <= GN_TOL, "kernel A disagrees with its plain version at LIGHT's align budget")
     check(int(out_k[2]) == int(args[5].sum()) == int(out_p[2]),
           "kernel A's count is wrong at LIGHT's align budget")
-    a = dict(
-        n=n_a, max_abs_err=abs_a, rel_err=rel_a,
-        ms=device_ms(lambda: gn.normal_equations_rotated(*args)),
-        plain_ms=device_ms(lambda: gn.normal_equations_rotated_ref(*args)),
-        **bound(n_a * ((3 + 6 + 3 + 6) * 4 + 1) + 9 * 4 + 43 * 4,
-                GN_FLOP_PER_POINT * int(args[5].sum())),
-    )
+    a = dict(n=n_a, max_abs_err=abs_a, rel_err=rel_a, **a_times(args))
 
     keys, vals = scan_moments(scan, config.max_raw_points, dev)
     n_d, w = vals.shape
     check((n_d, w) == (LIGHT["max_raw_points"], 10), f"LIGHT's moments are [{n_d}, {w}]")
-    down = dict(
-        n=n_d, w=w, max_abs_err=seg_compare(keys, vals, "LIGHT: real scan"),
-        ms=device_ms(lambda: segscan.segsum_sorted(keys, vals)),
-        plain_ms=device_ms(lambda: segscan.segsum_sorted_ref(keys, vals)),
-        **bound(n_d * 4 + 2 * n_d * w * 4, n_d * w),
-    )
+    down = dict(n=n_d, w=w, max_abs_err=seg_compare(keys, vals, "LIGHT: real scan"),
+                **b_times(keys, vals, segment_reduce_call(keys, vals)))
 
     skey_s, raw_s, head, seg_id = insert_rows(dev, config, scan)
     n_i = raw_s.shape[0]
@@ -1442,16 +1508,65 @@ def light_kernel_phase(dev) -> dict:
     rows = seg_id[head]
     rel_x = ((out_b[head] - out_x[rows]).abs() / scale[rows].clamp(min=1e-30)).max().item()
     check(rel_x <= SEG_TOL, "kernel B disagrees with index_add_ at LIGHT's insert shape")
-    ins = dict(
-        n=n_i, w=w, voxels=int(head.sum()), max_abs_err=abs_i, rel_err_index_add=rel_x,
-        ms=device_ms(lambda: segscan.segsum_sorted(skey_s, raw_s)),
-        plain_ms=device_ms(lambda: segscan.segsum_sorted_ref(skey_s, raw_s)),
-        library_ms=device_ms(lambda: torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)),
-        **bound(n_i * 4 + 2 * n_i * w * 4, n_i * w),
-    )
+    ins = dict(n=n_i, w=w, voxels=int(head.sum()), max_abs_err=abs_i, rel_err_index_add=rel_x,
+               **b_times(skey_s, raw_s,
+                         lambda: torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)))
     res = {"gn_normal_eq": a, "segscan_downsample": down, "segscan_insert": ins,
            "tolerance": {"gn": GN_TOL, "seg": SEG_TOL}}
     print("light_shapes " + json.dumps(res))
+    return res
+
+
+def tool_kernel_phase(dev, config, scan_points) -> dict:
+    """Both kernels at the shapes the tools (`eskf_lio_torch/tools/`) give
+    them and no other path does, against their plain versions with the
+    tolerances of the kernel phases: kernel A at `probe_align_parts`'s
+    N = 32,768; kernel B over a real scan's insert rows under `ate_matrix`'s
+    `budget48k` budget ([49,152, 10], a multiple of the tile rows; also
+    against `index_add_`), and over `profile_preprocess`'s input at
+    [131,072, 10], its keys nearly all distinct (also against
+    `torch.segment_reduce`)."""
+    import torch
+
+    from eskf_lio_torch.ops import gn_normal_eq as gn
+    from eskf_lio_torch.ops import segscan
+    from eskf_lio_torch.tools import ate_matrix, probe_align_parts, profile_preprocess as pp
+
+    args = gn_inputs(probe_align_parts.N, 51, dev)
+    out_k, out_p = gn.normal_equations_rotated(*args), gn.normal_equations_rotated_ref(*args)
+    abs_a, rel_a = gn_rel_err(args, out_k, out_p)
+    print(f"kernel A [probe_align_parts] N={probe_align_parts.N}: max_abs_err={abs_a:.3e} "
+          f"rel_err={rel_a:.3e} tol={GN_TOL:g}")
+    check(rel_a <= GN_TOL, "kernel A disagrees with its plain version at N = 32,768")
+    check(int(out_k[2]) == int(args[5].sum()) == int(out_p[2]),
+          "kernel A's count is wrong at N = 32,768")
+    a = dict(n=probe_align_parts.N, max_abs_err=abs_a, rel_err=rel_a, **a_times(args))
+
+    budget = dataclasses.replace(config, max_scan_points=ate_matrix.BUDGET_48K)
+    skey_s, raw_s, head, seg_id = insert_rows(dev, budget, scan_points)
+    check(raw_s.shape == (ate_matrix.BUDGET_48K, 10), f"budget48k's insert rows are {raw_s.shape}")
+    abs_i = seg_compare(skey_s, raw_s, "budget48k: insert rows")
+    out_b = segscan.segsum_sorted(skey_s, raw_s)
+    out_x = torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)
+    scale = torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s.abs())
+    rows = seg_id[head]
+    rel_x = ((out_b[head] - out_x[rows]).abs() / scale[rows].clamp(min=1e-30)).max().item()
+    check(rel_x <= SEG_TOL, "kernel B disagrees with index_add_ at budget48k's insert shape")
+    ins = dict(n=raw_s.shape[0], w=10, voxels=int(head.sum()), max_abs_err=abs_i,
+               rel_err_index_add=rel_x,
+               **b_times(skey_s, raw_s,
+                         lambda: torch.zeros_like(raw_s).index_add_(0, seg_id, raw_s)))
+
+    inp = pp.make_inputs(pp.N_RAW, pp.KCAP, pp.C_LOG2, dev)
+    keys, vals = inp["skey_sorted"], inp["vals10"]
+    del inp
+    rnd = dict(n=keys.shape[0], w=vals.shape[1],
+               segments=int((keys[1:] != keys[:-1]).sum()) + 1,
+               max_abs_err=seg_compare(keys, vals, "profile_preprocess: random keys"),
+               **b_times(keys, vals, segment_reduce_call(keys, vals)))
+    res = {"gn_normal_eq_32k": a, "segscan_insert_48k": ins, "segscan_random_keys_131k": rnd,
+           "tolerance": {"gn": GN_TOL, "seg": SEG_TOL}}
+    print("tool_shapes " + json.dumps(res))
     return res
 
 
@@ -2103,9 +2218,234 @@ def bench_phase(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the JAX system's diagnostic tools, as a user runs them
+# ---------------------------------------------------------------------------
+
+# (label, module under eskf_lio_torch.tools, arguments, timeout s).
+# ate_matrix runs two variants: `base` is the bench's HEAVY series.
+# ate_check runs twice: with its own update noises (1e-4 m, 3e-5 rad) the
+# filter loses the track on its noiseless sequence in both packages (GN
+# iterations up to 50 a scan), so that run is held to the JAX package's own
+# run of `tools/ate_check.py`; with the bench's noises it is held to 1 cm
+TOOLS = (
+    ("light_stages", "light_stages", (), 300),
+    ("profile_preprocess", "profile_preprocess", (), 300),
+    ("probe_align_parts", "probe_align_parts", (), 300),
+    ("probe_adaptive", "probe_adaptive", (), 300),
+    ("ate_check", "ate_check", (), 300),
+    ("ate_check_bench_noise", "ate_check", ("--tn", "1e-3", "--rn", "3e-4"), 300),
+    ("ate_matrix", "ate_matrix", ("exact", "budget48k"), 400),
+    ("bench_scaling_mesh", "bench_scaling_mesh", (), 300),
+    ("bench_shard", "bench_shard", (), 300),
+    ("bench_compile", "bench_compile", (), 300),
+    ("compile_bisect", "compile_bisect", (), 300),
+)
+TOOL_MAX_ATE_CM = {"light_stages": 1.0, "ate_matrix": 2.5, "ate_check_bench_noise": 1.0}
+# `python tools/ate_check.py` (its default arguments), JAX on the CPU: the
+# raw rmse of its first line, in cm (one run; the port's must be within 2 %)
+ATE_CHECK_JAX_RAW_CM = 777.11
+ATE_CHECK_JAX_RAW_TOL = 0.02
+SERIES_KEYS = ("scans_per_sec", "timed_scans", "icp_convergence_rate", "ate_rmse_cm",
+               "compile_s", "launches", "gn_iterations", "update_rows")
+PROFILE_PIECES = (
+    "sort2 @131k", "gather q[perm] [131k,3]", "gather [131k,14]", "gather [131k->32k,14]",
+    "segment_sum [131k,10]", "segscan kernel [131k,10]", "one-hot deskew matmul",
+    "deskew row gather [131k]", "sort2 @32k", "gather [32k,10]", "plane_regularize [32k]",
+    "axis_pass z [32k,10]", "axis_pass y [32k,10]", "axis_pass x [32k,10]",
+    "view probe [32k] @C=2^19", "preprocess FULL", "downsample+cov FULL",
+)
+ALIGN_PARTS = ("linalg_solve6", "chol6_unrolled", "se3_exp", "transform_points_32k",
+               "lookup_two_tier_32k", "gn_pallas_32k")
+COMPILE_CASES = 16
+BISECT_PIECES = ("scatter_slots[D]", "build_view[C]", "sort_perm[C+D]", "fold_into_main",
+                 "insert")
+
+
+def positive(x, what: str) -> float:
+    check(isinstance(x, (int, float)) and not isinstance(x, bool) and math.isfinite(x) and x > 0,
+          f"{what}: {x!r} is not a finite time above 0")
+    return x
+
+
+def net_time(x, what: str) -> float:
+    """A time less an empty graph's replays: finite, and 0 only where the
+    piece's replays took no longer than the empty graph's (its raw time is
+    held above 0 beside it)."""
+    check(isinstance(x, (int, float)) and math.isfinite(x) and x >= 0,
+          f"{what}: {x!r} is not a finite time of 0 or more")
+    return x
+
+
+def launches_follow_the_rule(line: dict, what: str, shards: int = 1,
+                             rows_key: str = "update_rows") -> None:
+    """The launches counted on the device: kernel A once per GN iteration
+    of each shard, kernel B once for the downsampler and once per shard's
+    insert a scan."""
+    got = line["launches"]
+    check(got["gn_normal_eq"] == shards * line["gn_iterations"] > 0,
+          f"{what}: kernel A launched {got['gn_normal_eq']} times, not {shards} x "
+          f"{line['gn_iterations']} GN iterations")
+    check(got["segscan"] == (shards + 1) * line[rows_key] > 0,
+          f"{what}: kernel B launched {got['segscan']} times, not {shards + 1} x "
+          f"{line[rows_key]} scans")
+
+
+def series_ok(line: dict, what: str, max_ate_cm: float) -> None:
+    missing = set(SERIES_KEYS) - set(line)
+    check(not missing, f"{what}: the series line lacks {sorted(missing)}")
+    positive(line["scans_per_sec"], f"{what} scans/s")
+    check(line["icp_convergence_rate"] >= MIN_CONVERGENCE,
+          f"{what}: convergence {line['icp_convergence_rate']} < {MIN_CONVERGENCE}")
+    check(line["ate_rmse_cm"] <= max_ate_cm, f"{what}: ATE {line['ate_rmse_cm']} cm > {max_ate_cm}")
+    launches_follow_the_rule(line, what)
+
+
+def check_tool(label: str, name: str, lines: list[str]) -> dict:
+    """Parse the lines of the tool `name` (run as `label`) in its schema and
+    hold them to their bounds; return what PERF.md records of it."""
+    js = [json.loads(l) for l in lines if l.startswith("{")]
+    if name == "light_stages":
+        series, stages = js
+        series_ok(series, name, TOOL_MAX_ATE_CM[name])
+        st = stages["light_stages_ms"]
+        check(set(st) == set(BENCH_STAGES), f"light_stages: stages {sorted(st)}")
+        for k in BENCH_STAGES:
+            positive(st[k], f"light_stages {k}")
+        return {"series": series, "stages_ms": st}
+    if name == "profile_preprocess":
+        pieces = {}
+        for l in lines:
+            m = re.match(r"^(.{28}) +(\S+) ms  \(raw (\S+) ms\)(  port: .*)?$", l)
+            check(m is not None, f"profile_preprocess: a line out of its schema: {l!r}")
+            pieces[m.group(1).rstrip()] = {
+                "ms": net_time(float(m.group(2)), f"profile_preprocess {l}"),
+                "raw_ms": positive(float(m.group(3)), f"profile_preprocess {l}")}
+        check(tuple(pieces) == PROFILE_PIECES, f"profile_preprocess printed {list(pieces)}")
+        return pieces
+    if name == "probe_align_parts":
+        check(tuple(l["op"] for l in js) == ALIGN_PARTS, f"probe_align_parts printed {js}")
+        for l in js:
+            net_time(l["ms"], f"{l['op']} ms")
+            positive(l["raw_ms"], f"{l['op']} raw_ms")
+        return {l["op"]: {k: l[k] for k in ("ms", "raw_ms", "k")} for l in js}
+    if name == "probe_adaptive":
+        m = re.match(r"^warm map voxels: (\d+)$", lines[0])
+        check(m is not None and int(m.group(1)) > 0, f"probe_adaptive: {lines[0]!r}")
+        warm = js[0]["warm_up"]
+        launches_follow_the_rule(warm, "probe_adaptive's warm-up")
+        variants = js[1:]
+        check([v["variant"] for v in variants] == ["exact", "adaptive", "freeze", "every2"],
+              f"probe_adaptive printed {variants}")
+        for v in variants:
+            positive(v["align_ms"], f"probe_adaptive {v['variant']}")
+            check(isinstance(v["iterations"], int) and v["iterations"] >= 1,
+                  f"probe_adaptive {v['variant']}: {v['iterations']} iterations")
+        return {"warm_map_voxels": int(m.group(1)), "warm_up": warm, "variants": variants}
+    if name == "ate_check":
+        m = re.match(r"^ATE rmse: (\S+) cm  max: (\S+) cm  port: .* rmse (\S+) cm$", lines[0])
+        check(m is not None, f"ate_check: {lines[0]!r}")
+        rmse, worst, raw = (positive(float(m.group(i)), f"{label} ATE") for i in (1, 2, 3))
+        if label in TOOL_MAX_ATE_CM:
+            check(rmse <= TOOL_MAX_ATE_CM[label],
+                  f"{label}: ATE {rmse} cm > {TOOL_MAX_ATE_CM[label]}")
+        else:
+            check(abs(raw - ATE_CHECK_JAX_RAW_CM) <= ATE_CHECK_JAX_RAW_TOL * ATE_CHECK_JAX_RAW_CM,
+                  f"{label}: raw ATE {raw} cm, the JAX package's {ATE_CHECK_JAX_RAW_CM}")
+        # numpy wraps a long array onto lines of its own
+        rest = "\n".join(lines[1:])
+        check(re.fullmatch(r"per-scan \|error\| cm, scans 95\.\.115: \[[^]]*\]\n"
+                           r"iters 95\.\.115: \[[^]]*\]\n"
+                           r"gt speed at scans 20/60/100: \[[^]]*\]", rest) is not None,
+              f"ate_check printed {lines}")
+        return {"ate_rmse_cm": rmse, "ate_max_cm": worst, "raw_ate_rmse_cm": raw,
+                "lines": lines[1:]}
+    if name == "ate_matrix":
+        check([l["variant"] for l in js] == ["exact", "budget48k"], f"ate_matrix printed {js}")
+        for l in js:
+            series_ok(l, f"ate_matrix {l['variant']}", TOOL_MAX_ATE_CM[name])
+        return {l["variant"]: l for l in js}
+    if name == "bench_scaling_mesh":
+        from eskf_lio_torch.parallel.sharded_map import slice_capacity
+        from eskf_lio_torch.tools import bench_scaling_mesh as bsm
+
+        cfg = bsm.make_config()
+        check([l["devices"] for l in js] == list(bsm.DEVICES), f"bench_scaling_mesh printed {js}")
+        for l in js:
+            d = l["devices"]
+            positive(l["ms_per_scan"], f"bench_scaling_mesh D={d}")
+            positive(l["capture_s"], f"bench_scaling_mesh D={d} capture")
+            check(l["per_device_slice"] == slice_capacity(cfg.max_scan_points, d, cfg.shard_slack)
+                  and l["per_device_map_rows"] == cfg.hash_capacity // d
+                  and l["shards_on_one_device"] is True, f"bench_scaling_mesh D={d}: {l}")
+            launches_follow_the_rule(l, f"bench_scaling_mesh D={d}", shards=d, rows_key="scans")
+        return {str(l["devices"]): l for l in js}
+    if name == "bench_shard":
+        check([l["stage"] for l in js] == ["plain_step", "sharded_step_mesh1", "sharding_overhead"],
+              f"bench_shard printed {js}")
+        positive(js[0]["ms_per_scan"], "bench_shard plain_step")
+        positive(js[1]["ms_per_scan"], "bench_shard sharded_step_mesh1")
+        check(math.isfinite(js[2]["overhead_pct"]), f"bench_shard: {js[2]}")
+        return {l["stage"]: l.get("ms_per_scan", l.get("overhead_pct")) for l in js}
+    if name == "bench_compile":
+        check(lines[0].startswith("backend: cuda"), f"bench_compile: {lines[0]!r}")
+        cases = []
+        for l in lines[1:]:
+            m = re.match(r"^(\S+) +N= *(\d+)  compile +(\S+)s   warm +(\S+) us/iter(  port: .*)?$", l)
+            check(m is not None, f"bench_compile: a line out of its schema: {l!r}")
+            cases.append({"case": m.group(1), "n": int(m.group(2)),
+                          "compile_s": positive(float(m.group(3)), f"bench_compile {l}"),
+                          "warm_us": net_time(float(m.group(4)), f"bench_compile {l}")})
+        check(len(cases) == COMPILE_CASES, f"bench_compile printed {len(cases)} cases")
+        return {"cases": cases}
+    if name == "compile_bisect":
+        check(lines[0] == "backend: cuda" and lines[1] == "C = 2^12 = 4096  (delta 1024)",
+              f"compile_bisect: {lines[:2]}")
+        pieces = {}
+        for l in lines[2:]:
+            m = re.match(r"^  (\S+) +first +(\S+)s  capture +(\S+)s  warm +(\S+) ms$", l)
+            check(m is not None, f"compile_bisect: a line out of its schema: {l!r}")
+            pieces[m.group(1)] = {
+                "first_s": positive(float(m.group(2)), f"compile_bisect {l}"),
+                "capture_s": positive(float(m.group(3)), f"compile_bisect {l}"),
+                "warm_ms": net_time(float(m.group(4)), f"compile_bisect {l}")}
+        check(tuple(pieces) == BISECT_PIECES, f"compile_bisect printed {list(pieces)}")
+        return pieces
+    raise SmokeFailure(f"no schema for the tool {name}")
+
+
+def tools_phase(smi: str) -> dict:
+    """Each of `eskf_lio_torch/tools/` as a user runs it, `python -m
+    eskf_lio_torch.tools.<name>` in a process of its own at the JAX
+    script's sizes: exit 0; every line in its schema, every time finite and
+    above 0, the last line this card's nvidia-smi line; ATE and convergence
+    within bounds where a tool reports them; and for the tools that replay
+    (light_stages, probe_adaptive's warm-up, ate_matrix, bench_scaling_mesh)
+    the launches counted on the device by the rule of the main path."""
+    res = {}
+    for label, name, args, timeout in TOOLS:
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"eskf_lio_torch.tools.{name}", *args],
+                              cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+        seconds = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            print(f"tool {label}: {line}")
+        check(proc.returncode == 0,
+              f"the tool {label} exited {proc.returncode}: "
+              f"{(proc.stderr.strip().splitlines() or ['no output'])[-1][:300]}")
+        lines = proc.stdout.splitlines()
+        check(bool(lines) and lines[-1] == json.dumps({"device": smi}),
+              f"the tool {label} names its device {lines[-1:]!r}, not {smi!r}")
+        res[label] = {"result": check_tool(label, name, lines[:-1]), "seconds": seconds}
+        print(f"tool {label}: checked, {seconds:.1f} s")
+    print("tools " + json.dumps({k: v["seconds"] for k, v in res.items()}))
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2151,6 +2491,7 @@ def main() -> int:
         # kernels came back short after the replay's long trace
         slices = slice_kernel_phase(dev, config, scan0)
         light_shapes = light_kernel_phase(dev)
+        tool_shapes = tool_kernel_phase(dev, config, scan0)
         res_b["bounds"] = kernel_bounds_phase()
         from eskf_lio_torch.pipeline import replay
 
@@ -2178,6 +2519,14 @@ def main() -> int:
         bench = bench_phase(smi)
         by_path["bench_light"] = bench["last_line"]["light"]["launches"]
         by_path["bench_heavy"] = bench["last_line"]["heavy"]["launches"]
+        tools = tools_phase(smi)
+        by_path["tool_light_stages"] = tools["light_stages"]["result"]["series"]["launches"]
+        by_path["tool_probe_adaptive_warm_up"] = (
+            tools["probe_adaptive"]["result"]["warm_up"]["launches"])
+        for variant, line in tools["ate_matrix"]["result"].items():
+            by_path[f"tool_ate_matrix_{variant}"] = line["launches"]
+        for d, line in tools["bench_scaling_mesh"]["result"].items():
+            by_path[f"tool_bench_scaling_mesh_d{d}"] = line["launches"]
     except SmokeFailure as exc:
         print(f"chip_smoke FAILED: {exc}", file=sys.stderr)
         return 1
@@ -2212,6 +2561,8 @@ def main() -> int:
         "slice_shapes": slices,
         # both kernels at the shapes of the bench's LIGHT series
         "light_shapes": light_shapes,
+        # both kernels at the shapes only the tools give them
+        "tool_shapes": tool_shapes,
         "insert_shape": {"segscan_ms": res_b["insert_shape_ms"],
                          "call_ms": res_b["insert_shape_call_ms"],
                          "bound_ms": res_b["insert_shape_bound_ms"],
@@ -2256,6 +2607,11 @@ def main() -> int:
         | {"seconds": bench["seconds"]},
         # both kernels over inputs that end a registered host range (phase 2)
         "kernel_bounds": res_b["bounds"],
+        # `python -m eskf_lio_torch.tools.<name>`: each tool's checked result
+        # and its process's seconds
+        "tools": tools,
+        # the whole script's seconds, the kernels' build included
+        "script_s": time.perf_counter() - t_script,
     }
     print(json.dumps(line))
     print(smi)

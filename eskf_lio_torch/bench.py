@@ -348,10 +348,17 @@ class StageTimer:
         self._empty = torch.zeros((), device=dev)
         self._baseline_s: dict[int, float] = {}
 
-    def _best_s(self, fn: Callable[[], None], reset: Callable[[], None], k: int) -> float:
+    def _best_s(self, fn: Callable[[], None], reset: Callable[[], None],
+                k: int) -> tuple[float, float]:
+        """(best seconds of k iterations, seconds of the first run: on the
+        card the capture and one replay)."""
         run = StepGraph(fn, self.dev, self.segscan_rows) if self.dev.type == "cuda" else fn
         reset()
+        synchronize(self.dev)
+        t0 = time.perf_counter()
         run()  # the capture and one replay
+        synchronize(self.dev)
+        first_s = time.perf_counter() - t0
         best = float("inf")
         for _ in range(2):
             reset()
@@ -370,14 +377,21 @@ class StageTimer:
                 for _ in range(k):
                     run()
                 best = min(best, time.perf_counter() - t0)
-        return best
+        return best, first_s
 
-    def ms(self, fn: Callable[[], None], reset: Callable[[], None], k: int) -> float:
+    def measure(self, fn: Callable[[], None], reset: Callable[[], None],
+                k: int) -> tuple[float, float, float]:
+        """(ms per iteration less the empty stage's, the same before that
+        subtraction, seconds of the first run), unrounded."""
         if k not in self._baseline_s:
             self._baseline_s[k] = self._best_s(
                 lambda: self._empty.add_(1e-12), lambda: self._empty.zero_(), k
-            )
-        return round(max(self._best_s(fn, reset, k) - self._baseline_s[k], 0.0) / k * 1e3, 3)
+            )[0]
+        best, first_s = self._best_s(fn, reset, k)
+        return max(best - self._baseline_s[k], 0.0) / k * 1e3, best / k * 1e3, first_s
+
+    def ms(self, fn: Callable[[], None], reset: Callable[[], None], k: int) -> float:
+        return round(self.measure(fn, reset, k)[0], 3)
 
 
 def stage_breakdown(config: Config, probe: dict, budget_left: Callable[[], float],

@@ -12,16 +12,17 @@ neighbour's bytes unseen unless the allocation ends a mapped range.
 
 * Kernel B: the values.  The shapes are N a multiple of the tile rows
   (1,024 at W = 10, 512 otherwise): the main path's three kernel-B shapes,
-  the bench's LIGHT series' two ([24,576, 10] and [12,288, 10]) and two of
-  the generic template.  Keys
+  the bench's LIGHT series' two ([24,576, 10] and [12,288, 10]), the
+  insert of `tools.ate_matrix`'s `budget48k` variant ([49,152, 10]) and two
+  of the generic template.  Keys
   are ~4 rows a segment, then one run over the last 40 % of the rows (the
   padding of a scan), so the tiles take both the halo and the published
   leads.
 * Kernel A: the four row arrays (points and map means [N, 3], packed
   covariances [N, 6]) and the mask [N], each ending its own range.  N is
-  the main path's 16,384 (one device), LIGHT's 12,288 and 8,192 (a
-  shard's slice at D = 4), whose full chunks take the 16-byte loads, and
-  two ragged N, whose
+  the main path's 16,384 (one device), LIGHT's 12,288, 8,192 (a shard's
+  slice at D = 4) and 32,768 (`tools.probe_align_parts`), whose full
+  chunks take the 16-byte loads, and two ragged N, whose
   last chunk takes the 4-byte ones.
 
 Prints `ok B N W max_abs_err` per kernel-B shape (head rows against the
@@ -47,9 +48,9 @@ from eskf_lio_torch.ops import gn_normal_eq as gn
 from eskf_lio_torch.ops import lie, segscan
 from eskf_lio_torch.ops._cuda import stream_handle
 
-SHAPES = ((8192, 10), (16384, 10), (131072, 10), (24576, 10), (12288, 10), (1024, 16),
-          (16384, 1))
-GN_SHAPES = (16384, 12288, 8192, 8191, 1000)
+SHAPES = ((8192, 10), (16384, 10), (131072, 10), (24576, 10), (12288, 10), (49152, 10),
+          (1024, 16), (16384, 1))
+GN_SHAPES = (16384, 12288, 8192, 32768, 8191, 1000)
 CHUNK = 1 << 16  # host registrations end on 64 KiB borders here
 PAD_KEY = 2**31 - 1
 

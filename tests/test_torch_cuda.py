@@ -226,7 +226,9 @@ def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(kernel_bounds_r
     rc, res, err = kernel_bounds_run
     assert rc == 0, err[-2000:]
     shapes = res["shapes"]
-    assert len(shapes) == 7
+    assert [(s["n"], s["w"]) for s in shapes] == [
+        (8192, 10), (16384, 10), (131072, 10), (24576, 10), (12288, 10), (49152, 10),
+        (1024, 16), (16384, 1)]
     # tolerance: relative to the sum of absolute values, which is at most the
     # longest run's length (values in [0, 1), a key run over 40 % of the rows)
     assert all(s["max_abs_err"] <= TOL * 0.4 * s["n"] for s in shapes)
@@ -235,14 +237,14 @@ def test_segscan_kernel_reads_nothing_past_the_end_of_its_values(kernel_bounds_r
 def test_gn_kernel_reads_nothing_past_the_end_of_its_rows(kernel_bounds_run):
     """The same module's kernel-A case: the four row arrays and the mask,
     each in host memory registered up to its last byte, at the main path's
-    N = 16,384, LIGHT's 12,288 and a shard's 8,192 (16-byte loads) and at
-    two ragged N (the
+    N = 16,384, LIGHT's 12,288, a shard's 8,192 and the 32,768 of
+    `tools.probe_align_parts` (16-byte loads) and at two ragged N (the
     last chunk's 4-byte loads): no fault, and the sums within `TOL` of the
     plain version, relative to the sum of the terms' absolute values (the
     tolerance of `test_gn_kernel_matches_plain`)."""
     rc, res, err = kernel_bounds_run
     assert rc == 0, err[-2000:]
-    assert [s["n"] for s in res["gn_shapes"]] == [16384, 12288, 8192, 8191, 1000]
+    assert [s["n"] for s in res["gn_shapes"]] == [16384, 12288, 8192, 32768, 8191, 1000]
     assert all(s["rel_err"] <= TOL for s in res["gn_shapes"])
 
 
