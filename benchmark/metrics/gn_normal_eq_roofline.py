@@ -1,0 +1,7 @@
+"""Kernel gn_normal_eq's bound (`benchmark/roofline.py`: its bytes over 3.35 TB/s
+or its operations over 67 TFLOP/s) over its device time a launch on a real
+row of the window (`benchmark/stages.py::kernel_ms`), in %."""
+
+
+def read(run):
+    return run.get("kernels", {}).get("gn_normal_eq", {}).get("share_percent")
