@@ -48,10 +48,15 @@
    exactly as often as the path needs, and that the warm half's rows waited
    for the device 0 times (torch's sync debug mode, by calling line).
    `profile`: the eager step (`make_step_core`) over the same rows, its last
-   five under torch.profiler (busy time, launches, stages).  `graph`: the
-   eager step and a second graph run beside the first: scans/s of both,
-   device time a scan of the graph path between CUDA events, capture
-   seconds, node count and peak memory; all three runs equal bit for bit.
+   five under torch.profiler (busy time, launches).  `graph`: the eager
+   step and a second graph run beside the first: scans/s of both, device
+   time a scan of the graph path between CUDA events, capture seconds,
+   node count and peak memory; then a third graph run built with the port's
+   tracer (`utils/profiling.py::Tracer`): its graphs hold exactly their
+   stamp nodes more than the second run's, and its stamps time the step's
+   stages on every row (`traced`: each stage's mean, the GN stamps a row,
+   the first to last stamp against the row's device span); all four runs
+   equal bit for bit.
 4. Live path: at the same size and on the same 40 scans, with
    `remove_period` cut to 2.0 s and `remove_distance_threshold` to 15 m so
    that an eviction fires inside the step (the synthetic room is 20 m wide:
@@ -85,7 +90,7 @@
    most 2 on the captured step), scans/s of both, the graph path's device
    time a scan between CUDA events, its capture seconds, nodes and peak
    memory, and the eager step's last scan under torch.profiler
-   (`sharded_profile`: launches, busy time, stages).  (Phase 2 holds both
+   (`sharded_profile`: launches, busy time).  (Phase 2 holds both
    kernels against their plain versions and times them at a shard's slice
    shapes, A at N = 8,192 and B at N = 16,384, W = 10: `slice_shapes`.)
    `dist`: two processes of `python -m eskf_lio_torch.cli --devices 4
@@ -835,16 +840,13 @@ def eager_start(dev, config, init_scan):
     return odo.make_step_core(config, dev), carry
 
 
-STAGES = ("predict", "preprocess", "align", "pose_update", "map_insert", "evict")
-
-
 def trace_scans(run_scans, n: int, scan_ms: float) -> dict:
     """`run_scans()` (n scans; it must leave no state behind, since a trace
     without device records is taken again, see device_profile) under
     torch.profiler: the device's busy time per scan (the sum of kernel
     durations), its idle share against the unprofiled wall time per scan
-    `scan_ms`, each stage's host and device time, launches per scan and the
-    kernels that take the most device time."""
+    `scan_ms`, launches per scan and the kernels that take the most device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -864,23 +866,12 @@ def trace_scans(run_scans, n: int, scan_ms: float) -> dict:
             run_scans()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        # the stage ranges appear twice: on the host, and mirrored on the
-        # device timeline as annotations spanning their kernels
         events = prof.key_averages()
-        kernels = [e for e in events if on_device(e) and e.key not in STAGES]
+        kernels = [e for e in events if on_device(e)]
         if kernels:
             break
         print("  torch.profiler recorded no device kernel; tracing again")
     busy_ms = sum(dev_us(e, True) for e in kernels) / 1e3 / n
-    stages = {}
-    for e in events:
-        if e.key in STAGES:
-            row = stages.setdefault(e.key, {})
-            if on_device(e):
-                row["device_span_ms"] = dev_us(e, True) / 1e3 / n
-            else:
-                row["host_ms"] = e.cpu_time_total / 1e3 / n
-                row["kernel_ms"] = dev_us(e, False) / 1e3 / n
     top = sorted(kernels, key=lambda e: -dev_us(e, True))[:10]
     check(busy_ms > 0.0, "the profiled scans ran nothing on the device")
     return dict(
@@ -888,7 +879,6 @@ def trace_scans(run_scans, n: int, scan_ms: float) -> dict:
         wall_ms_per_scan_profiled=wall_ms / n,
         idle_share=1.0 - busy_ms / scan_ms,
         launches_per_scan=sum(e.count for e in kernels) / n,
-        stages=stages,
         top_kernels=[
             {"name": e.key[:80], "per_scan": e.count / n, "ms_per_scan": dev_us(e, True) / 1e3 / n}
             for e in top
@@ -926,13 +916,15 @@ def graph_phase(dev, config, packed, e2e: dict, eager_busy_ms: float) -> dict:
     `make_step_core` eagerly over the whole sequence (scans/s of its warm
     half), then a second graph run row by row, each row between CUDA events
     (device time a scan: the events' span, which holds the row's few input
-    and output copies besides the graph); both must give the first graph
-    run's trajectory and map bit for bit."""
+    and output copies besides the graph), and a third graph run built with
+    the tracer, its rows in one call (`traced`); all must give the first
+    graph run's trajectory and map bit for bit."""
     import numpy as np
     import torch
 
     from eskf_lio_torch.bench import run_rows, start_replay
     from eskf_lio_torch.pipeline import replay
+    from eskf_lio_torch.utils.profiling import Tracer
 
     b_total = packed[1].dt.shape[0]
     half = b_total // 2
@@ -971,6 +963,35 @@ def graph_phase(dev, config, packed, e2e: dict, eager_busy_ms: float) -> dict:
                    and maps_bit_equal(carry[1], ref_map))
     warm = slice(half, b_total)
     graph_ms = float(np.mean(spans[warm]))
+
+    tracer = Tracer()
+    _, carry = start_replay(dev, config, packed[0], graphed=False)
+    stamped = replay.make_replay_step(config, dev, tracer)
+    carry, Rs_s, ts_s, _ = run_rows(stamped, carry, packed, slice(0, b_total))
+    stamped_equal = (torch.equal(Rs_s, ref_Rs) and torch.equal(ts_s, ref_ts)
+                     and maps_bit_equal(carry[1], ref_map))
+    del carry
+    nodes = {}
+    for evict, g in step.scan_step.graphs.items():
+        g_s = stamped.scan_step.graphs[evict]
+        if g.graph is not None and g_s.graph is not None:
+            nodes[f"update{'_evict' if evict else ''}"] = {
+                "nodes": g.nodes, "stamped_nodes": g_s.nodes, "stamps": g_s.stamp_nodes,
+                "unstamped_stamps": g.stamp_nodes}
+    summary = tracer.summary()
+    stages = summary.get("stages", {})
+    # the warm half's rows: a first row's device span holds its capture
+    stamped_rows, row_spans = tracer.stage_rows()[warm], tracer.device_spans("row")[warm]
+    row_ms = float(np.mean([b - a for _, _, a, b in row_spans])) / 1e6
+    first_to_last_ms = float(np.mean([r[-1][1] - r[0][1] for r in stamped_rows])) / 1e6 \
+        if stamped_rows else 0.0
+    traced = dict(
+        rows=stages.get("rows", 0), warm_row_device_ms=row_ms,
+        stage_ms={k: v["mean_ms"] for k, v in stages.items() if isinstance(v, dict) and "mean_ms" in v},
+        gn_stamps_per_row=stages.get("ticks_per_row", {}).get("gn", 0.0),
+        first_to_last_share=first_to_last_ms / row_ms,
+        nodes=nodes, clock=summary["clock"], bit_equal=stamped_equal,
+    )
     res = dict(
         rows=b_total, warm_rows=b_total - half,
         eager_scans_per_s=(b_total - half) / eager_s,
@@ -987,11 +1008,21 @@ def graph_phase(dev, config, packed, e2e: dict, eager_busy_ms: float) -> dict:
         second_graph_run_bit_equal=again_equal,
         device_syncs_in_rows_per_scan=e2e["device_syncs_in_rows_per_scan"],
         launches=e2e["launches"], gn_iterations=e2e["gn_iterations"],
-        update_rows=e2e["update_rows"],
+        update_rows=e2e["update_rows"], traced=traced,
     )
     print("graph " + json.dumps(res))
     check(again_equal, "two graph runs of the replay differ in their bits")
     check(eager_equal, f"the eager step and the graph step differ (max {apart_m:.3e} m)")
+    check(stamped_equal, "the graph run built with a tracer differs in its bits")
+    check(bool(nodes) and all(n["unstamped_stamps"] == 0 and n["stamps"] > 0
+                              and n["stamped_nodes"] == n["nodes"] + n["stamps"]
+                              for n in nodes.values()),
+          f"the tracer's graphs hold more or other nodes than their stamps: {nodes}")
+    check(traced["rows"] == b_total, f"{traced['rows']} stamped rows, not {b_total}")
+    check(round(traced["gn_stamps_per_row"] * b_total) == e2e["gn_iterations"],
+          f"GN stamps {traced['gn_stamps_per_row'] * b_total} != GN iterations {e2e['gn_iterations']}")
+    check(0.5 < traced["first_to_last_share"] <= 1.0,
+          f"the stamps cover {traced['first_to_last_share']:.3f} of a row's device span")
     return res
 
 

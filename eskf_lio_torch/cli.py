@@ -94,6 +94,11 @@ def main(argv: list[str] | None = None) -> int:
     )
     ap.add_argument("--checkpoint-out", default=None)
     ap.add_argument("--resume-from", default=None)
+    ap.add_argument(
+        "--trace-out", default=None, metavar="JSON",
+        help="trace the run (host spans, counters, the step's device spans and stage "
+        "stamps) and write it as a Chrome-trace file that Perfetto opens; off without it",
+    )
     args = ap.parse_args(argv)
 
     # multi-process: form the process group BEFORE any device use (it
@@ -124,8 +129,10 @@ def _run(ap, args, n_procs: int, proc_id: int) -> int:
     from eskf_lio_torch import device as device_policy
     from eskf_lio_torch.config import Config, ImuConfig, load_config
     from eskf_lio_torch.io import dataset, export
+    from eskf_lio_torch.utils.profiling import Tracer
 
     device = device_policy.resolve(args.device)
+    tracer = Tracer() if args.trace_out else None
 
     if args.config:
         config = load_config(args.config)
@@ -167,7 +174,7 @@ def _run(ap, args, n_procs: int, proc_id: int) -> int:
         from eskf_lio_torch.pipeline import replay as rp
 
         positions, rotations, diags, voxmap = rp.run_replay(
-            config, seq, max_scans=args.max_scans, device=device
+            config, seq, max_scans=args.max_scans, device=device, tracer=tracer
         )
         n = len(positions)
         elapsed = time.perf_counter() - t0
@@ -186,7 +193,7 @@ def _run(ap, args, n_procs: int, proc_id: int) -> int:
     elif args.stream:
         from eskf_lio_torch.pipeline.stream import StreamingRunner, merged_stream
 
-        runner = StreamingRunner(config, device=device)
+        runner = StreamingRunner(config, device=device, tracer=tracer)
         odo = runner.odo
         if args.resume_from:
             from eskf_lio_torch.utils import checkpoint
@@ -211,11 +218,12 @@ def _run(ap, args, n_procs: int, proc_id: int) -> int:
         if args.devices > 1:
             from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
 
-            odo = ShardedOdometry(config, n_devices=args.devices, device=device)
+            odo = ShardedOdometry(config, n_devices=args.devices, device=device,
+                                  tracer=tracer)
         else:
             from eskf_lio_torch.pipeline.odometry import Odometry
 
-            odo = Odometry(config, device=device)
+            odo = Odometry(config, device=device, tracer=tracer)
         if args.resume_from:
             from eskf_lio_torch.utils import checkpoint
 
@@ -264,6 +272,9 @@ def _run(ap, args, n_procs: int, proc_id: int) -> int:
 
     if n_procs > 1 and proc_id != 0:
         return 0  # only process 0 writes the remaining artifacts
+    if tracer is not None:
+        tracer.export(args.trace_out)
+        print(f"saved {args.trace_out} ({tracer.n} spans)")
     if args.traj_out:
         export.write_trajectory_json(
             args.traj_out, odo.trajectory_t, odo.trajectory_R,

@@ -13,6 +13,13 @@
 // earlier work in the same graph wrote (for a WHILE node, also the last work
 // of its body): bound by its launch, ~2 us, nothing to move.  Every entry
 // point returns cudaGetLastError() or the failing call's error.
+//
+// `graph_cond_stamp` launches the tracer's stamp (eskf_lio_torch/utils/
+// profiling.py): one thread reads %globaltimer and writes (tag, ns) into a
+// ring of (tag, ns) pairs at a cursor on the device that it advances itself,
+// so that a replay of a graph holding stamps needs no host read.  Launched
+// only for a step built with a tracer; bound by its launch, like the
+// condition kernel.
 
 #include <cuda_runtime.h>
 
@@ -20,6 +27,16 @@ namespace {
 
 __global__ void graph_cond_set_kernel(cudaGraphConditionalHandle handle, const bool* pred) {
     cudaGraphSetConditional(handle, *pred ? 1u : 0u);
+}
+
+__global__ void graph_cond_stamp_kernel(long long* ring, unsigned long long* cursor, long long tag,
+                                        unsigned long long mask) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    const unsigned long long i = *cursor & mask;
+    ring[2 * i] = tag;
+    ring[2 * i + 1] = static_cast<long long>(ns);
+    *cursor += 1;
 }
 
 }  // namespace
@@ -56,6 +73,14 @@ int graph_cond_handle_create(void* stream, unsigned long long* handle_out) {
 int graph_cond_set(unsigned long long handle, const void* pred, void* stream) {
     graph_cond_set_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<cudaGraphConditionalHandle>(handle), static_cast<const bool*>(pred));
+    return cudaGetLastError();
+}
+
+// Launch, on `stream`, the stamp of `tag` into `ring` (mask + 1 pairs) at
+// `cursor`.
+int graph_cond_stamp(void* ring, void* cursor, long long tag, unsigned long long mask, void* stream) {
+    graph_cond_stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<long long*>(ring), static_cast<unsigned long long*>(cursor), tag, mask);
     return cudaGetLastError();
 }
 

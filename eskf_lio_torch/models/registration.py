@@ -33,6 +33,7 @@ from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.ops import gn_normal_eq, lie
 from eskf_lio_torch.types import Pose, ProcessedScan
 from eskf_lio_torch.utils.graphs import device_if, device_while
+from eskf_lio_torch.utils.profiling import stage
 
 
 class AlignResult(NamedTuple):
@@ -125,6 +126,7 @@ def align(
     config: Config,
     lookup_fn: Callable | None = None,
     reduce_fn: Callable | None = None,
+    tracer=None,
 ) -> AlignResult:
     """Iterated GN alignment (`ICP::align`, `Registration.cpp:7-35`).
 
@@ -141,7 +143,11 @@ def align(
     normal equations are taken slice by slice (kernel A once per slice) and
     stacked as [L, 6, 6], [L, 6], [L], and `reduce_fn`, required then,
     sums them.  The adaptive re-match predicate stays per slice, as it is
-    per device in the JAX package."""
+    per device in the JAX package.
+
+    With a tracer, each GN iteration's head is marked (`profiling.stage`, a
+    tick named "gn"): a stamp node at the top level for the first pass and
+    one in the WHILE node's body, written once a pass on the device."""
     sliced = scan.points.dim() == 3
     if sliced and (lookup_fn is None or reduce_fn is None):
         raise ValueError("a scan of owner slices needs lookup_fn and reduce_fn")
@@ -184,6 +190,7 @@ def align(
         num_corr, need, mu, cov_map_packed, hit): `need` is the adaptive
         re-match flag per slice, (mu, cov_map_packed, hit) the cached
         correspondences."""
+        stage(tracer, "gn", tick=True)
         _, it, _, R_tot, t_tot, _, need, *corr = carry
         pts_w = lie.transform_points(R_tot, t_tot, scan.points)
         if adaptive:

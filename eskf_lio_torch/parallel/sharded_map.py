@@ -45,7 +45,6 @@ import math
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from eskf_lio_torch.config import Config
 from eskf_lio_torch.map import voxel_map as vm
@@ -56,6 +55,7 @@ from eskf_lio_torch.parallel.distributed import ShardMesh
 from eskf_lio_torch.pipeline import odometry as odo
 from eskf_lio_torch.types import FilterState, ImuChunk, ProcessedScan, Scan
 from eskf_lio_torch.utils.graphs import assign
+from eskf_lio_torch.utils.profiling import stage
 
 # VoxelMap fields that are replicated (not sharded): only the packing origin
 _REPL_FIELDS = ("origin",)
@@ -214,12 +214,14 @@ def _shard_sum_fn(n_local: int):
     return reduce_fn
 
 
-def make_sharded_scan_step(config: Config, mesh: ShardMesh):
+def make_sharded_scan_step(config: Config, mesh: ShardMesh, tracer=None):
     """Build the sharded per-scan step.
 
     Signature matches `pipeline.odometry.make_scan_step`'s step, but the map
     is a `ShardedVoxelMap` (each block its own sub-table) and the GN and
-    insert work of each shard runs on owner-compacted N/D-scaled slices."""
+    insert work of each shard runs on owner-compacted N/D-scaled slices.
+    With a tracer, its stage boundaries are marked as the single-device
+    step's (`profiling.stage`)."""
     dev = mesh.device
     n_dev = mesh.n_shards
     n_local = mesh.shards_per_process
@@ -250,89 +252,90 @@ def make_sharded_scan_step(config: Config, mesh: ShardMesh):
         blocks = voxmap.blocks
 
         # 1-3. predict + rollback + preprocess: once per process
-        with record_function("predict"):
-            base, hist = eskf.predict_chunk_prefix(
-                state, chunk, noise, base_mask=chunk.t_rel <= 0.0
-            )
-        with record_function("preprocess"):
-            processed = preprocess.preprocess(scan, hist, T_il, config)
+        stage(tracer, "predict")
+        base, hist = eskf.predict_chunk_prefix(
+            state, chunk, noise, base_mask=chunk.t_rel <= 0.0
+        )
+        stage(tracer, "preprocess")
+        processed = preprocess.preprocess(scan, hist, T_il, config)
         covp = vm.pack_cov(processed.covs)
 
-        with record_function("align"):
-            # 4. owner-compact each shard's GN work to a static N/D·slack slice
-            guess = eskf.pose_of(base)
-            owners = _corner_owners(
-                guess.apply(processed.points), corners, config.map_voxel_size, n_dev
+        stage(tracer, "align")
+        # 4. owner-compact each shard's GN work to a static N/D·slack slice
+        guess = eskf.pose_of(base)
+        owners = _corner_owners(
+            guess.apply(processed.points), corners, config.map_voxel_size, n_dev
+        )
+        slices, gn_overflow = [], 0
+        for my in mesh.local_shards:
+            cand = (owners == my).any(0) & processed.valid
+            (s_pts, s_covp), s_valid, overflow = _compact_slice(
+                cand, (processed.points, covp), s_cap_gn
             )
-            slices, gn_overflow = [], 0
-            for my in mesh.local_shards:
-                cand = (owners == my).any(0) & processed.valid
-                (s_pts, s_covp), s_valid, overflow = _compact_slice(
-                    cand, (processed.points, covp), s_cap_gn
-                )
-                slices.append((s_pts, s_covp, s_valid))
-                gn_overflow = gn_overflow + overflow
-            s_pts, s_covp, s_valid = (torch.stack(x) for x in zip(*slices))
-            sliced = ProcessedScan(points=s_pts, covs=vm.unpack_cov(s_covp), valid=s_valid)
+            slices.append((s_pts, s_covp, s_valid))
+            gn_overflow = gn_overflow + overflow
+        s_pts, s_covp, s_valid = (torch.stack(x) for x in zip(*slices))
+        sliced = ProcessedScan(points=s_pts, covs=vm.unpack_cov(s_covp), valid=s_valid)
 
-            # 5. sharded VGICP: per-shard slice lookup + summed normal
-            # equations.  A block only stores owned voxels, so `hit` is the
-            # exact ownership filter — a point over-claimed by two shards
-            # hits on exactly one of them.
-            def lookup_fn(pts):
-                return tuple(
-                    torch.stack(x) for x in zip(*(
-                        vm.lookup(block, pts[i], **map_kw)
-                        for i, block in enumerate(blocks)
-                    ))
-                )
-
-            res = registration.align(
-                sliced, None, guess, config, lookup_fn=lookup_fn, reduce_fn=reduce_fn
+        # 5. sharded VGICP: per-shard slice lookup + summed normal
+        # equations.  A block only stores owned voxels, so `hit` is the
+        # exact ownership filter — a point over-claimed by two shards
+        # hits on exactly one of them.
+        def lookup_fn(pts):
+            return tuple(
+                torch.stack(x) for x in zip(*(
+                    vm.lookup(block, pts[i], **map_kw)
+                    for i, block in enumerate(blocks)
+                ))
             )
+
+        res = registration.align(
+            sliced, None, guess, config, lookup_fn=lookup_fn, reduce_fn=reduce_fn,
+            tracer=tracer,
+        )
 
         # 6. measurement update: once per process
-        with record_function("pose_update"):
-            corrected = eskf.pose_update(base, res.pose, noise)
-            T = eskf.pose_of(corrected)
+        stage(tracer, "pose_update")
+        corrected = eskf.pose_update(base, res.pose, noise)
+        T = eskf.pose_of(corrected)
 
         # 7. owner-compacted insert into each local block (ownership exact:
         # the post-update pose is fixed)
-        with record_function("map_insert"):
-            moved_R = prev_R.T @ T.R
-            moved_t = prev_R.T @ (T.t - prev_t)
-            cosine = 0.5 * (torch.trace(moved_R) - 1.0)
-            should_insert = (cosine < config.map_update_cosine_threshold) | (
-                torch.sum(moved_t * moved_t) > config.map_update_translation_sq_threshold
+        stage(tracer, "map_insert")
+        moved_R = prev_R.T @ T.R
+        moved_t = prev_R.T @ (T.t - prev_t)
+        cosine = 0.5 * (torch.trace(moved_R) - 1.0)
+        should_insert = (cosine < config.map_update_cosine_threshold) | (
+            torch.sum(moved_t * moved_t) > config.map_update_translation_sq_threshold
+        )
+        pts_world = T.apply(processed.points)
+        owner_w = vx.owner_hash(vx.voxel_key(pts_world, config.map_voxel_size), n_dev)
+        new_blocks, dropped, ins_overflow = [], 0, 0
+        for block, my in zip(blocks, mesh.local_shards):
+            (i_pts_w, i_covp), i_valid, overflow = _compact_slice(
+                processed.valid & (owner_w == my), (pts_world, covp), s_cap
             )
-            pts_world = T.apply(processed.points)
-            owner_w = vx.owner_hash(vx.voxel_key(pts_world, config.map_voxel_size), n_dev)
-            new_blocks, dropped, ins_overflow = [], 0, 0
-            for block, my in zip(blocks, mesh.local_shards):
-                (i_pts_w, i_covp), i_valid, overflow = _compact_slice(
-                    processed.valid & (owner_w == my), (pts_world, covp), s_cap
-                )
-                # rotate only the sliced covariances into world frame: R Σ Rᵀ
-                covs_w = T.R @ vm.unpack_cov(i_covp) @ T.R.T
-                block, lost = vm.insert(
-                    block, i_pts_w, vm.pack_cov(covs_w), i_valid & should_insert, **map_kw
-                )
-                new_blocks.append(block)
-                dropped = dropped + lost
-                ins_overflow = ins_overflow + overflow
+            # rotate only the sliced covariances into world frame: R Σ Rᵀ
+            covs_w = T.R @ vm.unpack_cov(i_covp) @ T.R.T
+            block, lost = vm.insert(
+                block, i_pts_w, vm.pack_cov(covs_w), i_valid & should_insert, **map_kw
+            )
+            new_blocks.append(block)
+            dropped = dropped + lost
+            ins_overflow = ins_overflow + overflow
 
         # 8. eviction: purely local per shard (host-known schedule)
         removed = torch.zeros((), dtype=torch.int64, device=dev)
         if bool(do_evict) and config.remove_distant_points:
-            with record_function("evict"):
-                for i, block in enumerate(new_blocks):
-                    new_blocks[i], gone = vm.evict_beyond(
-                        block, T.t,
-                        voxel_size=config.map_voxel_size,
-                        distance_threshold=config.remove_distance_threshold,
-                        max_points_per_voxel=config.max_points_per_voxel,
-                    )
-                    removed = removed + gone
+            stage(tracer, "evict")
+            for i, block in enumerate(new_blocks):
+                new_blocks[i], gone = vm.evict_beyond(
+                    block, T.t,
+                    voxel_size=config.map_voxel_size,
+                    distance_threshold=config.remove_distance_threshold,
+                    max_points_per_voxel=config.max_points_per_voxel,
+                )
+                removed = removed + gone
 
         # the four per-shard counters, summed over the processes in one
         # all-reduce (slice overflows are 0 in healthy operation; raise
@@ -352,6 +355,7 @@ def make_sharded_scan_step(config: Config, mesh: ShardMesh):
             "gn_slice_overflow": counters[2],
             "insert_slice_overflow": counters[3],
         }
+        stage(tracer, "end")
         return corrected, ShardedVoxelMap(new_blocks, mesh), T.R, T.t, diag
 
     return scan_step
@@ -421,17 +425,17 @@ class GraphedShardedScanStep(odo.GraphedScanStep):
 
     diag_keys = SHARDED_DIAG_KEYS
 
-    def __init__(self, config: Config, mesh: ShardMesh):
+    def __init__(self, config: Config, mesh: ShardMesh, tracer=None):
         if dist.staged(mesh.device):
             raise RuntimeError(
                 "the sharded step is not captured under a gloo process group on a "
                 "CUDA device (graph_choice): its all-reduce is staged through the host"
             )
         self.mesh = mesh
-        super().__init__(config, mesh.device)
+        super().__init__(config, mesh.device, tracer)
 
     def _make_core(self, config: Config, dev):
-        return make_sharded_scan_step(config, self.mesh)
+        return make_sharded_scan_step(config, self.mesh, self.tracer)
 
     def _make_map(self, config: Config, dev) -> None:
         whole = vm.VoxelMap.create(config.hash_capacity, config.map_delta_capacity, device=dev)
@@ -494,20 +498,21 @@ class ShardedOdometry(odo.Odometry):
         n_devices: int | None = None,
         init_state: FilterState | None = None,
         device="cuda",
+        tracer=None,
     ):
         self.mesh = ShardMesh.create(n_devices or dist.process_count(), device)
-        super().__init__(config, init_state=init_state, device=self.mesh.device)
+        super().__init__(config, init_state=init_state, device=self.mesh.device, tracer=tracer)
 
     def _make_steps(self):
         """The sharded steps: the scan step a `GraphedShardedScanStep` or
         eager, by `graph_choice` (`graphed`, `step_reason`); the init step
         eager, as the single-device one is."""
         self.graphed, self.step_reason = graph_choice(self.device)
-        scan_step = (GraphedShardedScanStep(self.config, self.mesh) if self.graphed
-                     else make_sharded_scan_step(self.config, self.mesh))
+        scan_step = (GraphedShardedScanStep(self.config, self.mesh, self.tracer) if self.graphed
+                     else make_sharded_scan_step(self.config, self.mesh, self.tracer))
         return (scan_step,
                 make_sharded_init_step(self.config, self.mesh),
-                odo.make_predict_only(self.config, self.device))
+                odo.make_predict_only(self.config, self.device, self.tracer))
 
     @property
     def voxmap(self) -> ShardedVoxelMap:

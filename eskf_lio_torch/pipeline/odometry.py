@@ -19,10 +19,11 @@ building and gating on IMU coverage of the scan end (`Odometry.cpp:65-69`)
 — uploads one packed scan and one IMU chunk per step, and reads the pose
 and the diagnostics back in one transfer.
 
-Each stage runs under a `torch.profiler.record_function` range (predict,
-preprocess, align, pose_update, map_insert, evict), so a profiler trace
-splits the step's host and device time by stage; without an active
-profiler the ranges cost a few microseconds a step.
+Built with a tracer (`utils.profiling.Tracer`), the step marks each stage
+boundary (predict, preprocess, align, pose_update, map_insert, evict, end):
+a captured step holds a stamp node at each, written on the device at every
+replay, and an eager one records host spans; `Odometry.process_scan` records
+its host spans and the step's device span.  Without one, nothing is marked.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from eskf_lio_torch import device as device_policy
 from eskf_lio_torch.config import Config
@@ -47,6 +47,7 @@ from eskf_lio_torch.ops import lie, preprocess
 from eskf_lio_torch.types import FilterState, ImuChunk, Pose, ProcessedScan, Scan
 from eskf_lio_torch.utils.convert import from_numpy
 from eskf_lio_torch.utils.graphs import StepGraph, assign
+from eskf_lio_torch.utils.profiling import stage
 
 # the step's diagnostics, in the order of a captured step's diagnostic
 # vector; the flags among them are read back as bools
@@ -72,10 +73,11 @@ def lidar_extrinsics(config: Config, device="cuda", dtype=torch.float32) -> Pose
     return Pose(R=lie.quat_to_mat(lie.quat_normalize(q)), t=t)
 
 
-def make_step_core(config: Config, device="cuda") -> Callable:
+def make_step_core(config: Config, device="cuda", tracer=None) -> Callable:
     """The per-scan step: core(carry, inputs) -> (carry, diag) with
     carry = (FilterState, VoxelMap, prev_R, prev_t) and
-    inputs = (ImuChunk, Scan, do_evict: bool)."""
+    inputs = (ImuChunk, Scan, do_evict: bool).  With a tracer, its stage
+    boundaries are marked (`profiling.stage`)."""
     dev = device_policy.resolve(device)
     noise = eskf.make_noise_params(config, dev)
     T_il = lidar_extrinsics(config, dev)
@@ -86,54 +88,54 @@ def make_step_core(config: Config, device="cuda") -> Callable:
         chunk, scan, do_evict = inputs
 
         # 1+2. predict to the last sample before scan end (parallel prefix)
-        with record_function("predict"):
-            base, hist = eskf.predict_chunk_prefix(
-                state, chunk, noise, base_mask=chunk.t_rel <= 0.0
-            )
+        stage(tracer, "predict")
+        base, hist = eskf.predict_chunk_prefix(
+            state, chunk, noise, base_mask=chunk.t_rel <= 0.0
+        )
         # 3. preprocess
-        with record_function("preprocess"):
-            processed = preprocess.preprocess(scan, hist, T_il, config)
+        stage(tracer, "preprocess")
+        processed = preprocess.preprocess(scan, hist, T_il, config)
 
         # 4. VGICP over the align-budget prefix (live voxels are a contiguous
         # ascending-key prefix of the processed scan); insert uses the full
         # scan
-        with record_function("align"):
-            guess = eskf.pose_of(base)
-            aligned_scan = ProcessedScan(*(x[:a_cap] for x in processed))
-            res = registration.align(aligned_scan, voxmap, guess, config)
+        stage(tracer, "align")
+        guess = eskf.pose_of(base)
+        aligned_scan = ProcessedScan(*(x[:a_cap] for x in processed))
+        res = registration.align(aligned_scan, voxmap, guess, config, tracer=tracer)
 
         # 5. measurement update
-        with record_function("pose_update"):
-            corrected = eskf.pose_update(base, res.pose, noise)
-            T = eskf.pose_of(corrected)
+        stage(tracer, "pose_update")
+        corrected = eskf.pose_update(base, res.pose, noise)
+        T = eskf.pose_of(corrected)
 
         # 6. map update with the frame-to-frame motion gate
-        with record_function("map_insert"):
-            moved_R = prev_R.T @ T.R
-            moved_t = prev_R.T @ (T.t - prev_t)
-            cosine = 0.5 * (torch.trace(moved_R) - 1.0)
-            should_insert = (cosine < config.map_update_cosine_threshold) | (
-                torch.sum(moved_t * moved_t) > config.map_update_translation_sq_threshold
-            )
-            voxmap, dropped = vm.insert(
-                voxmap,
-                T.apply(processed.points),
-                vm.pack_cov(T.R @ processed.covs @ T.R.T),
-                processed.valid & should_insert,
-                voxel_size=config.map_voxel_size,
-                max_points_per_voxel=config.max_points_per_voxel,
-            )
+        stage(tracer, "map_insert")
+        moved_R = prev_R.T @ T.R
+        moved_t = prev_R.T @ (T.t - prev_t)
+        cosine = 0.5 * (torch.trace(moved_R) - 1.0)
+        should_insert = (cosine < config.map_update_cosine_threshold) | (
+            torch.sum(moved_t * moved_t) > config.map_update_translation_sq_threshold
+        )
+        voxmap, dropped = vm.insert(
+            voxmap,
+            T.apply(processed.points),
+            vm.pack_cov(T.R @ processed.covs @ T.R.T),
+            processed.valid & should_insert,
+            voxel_size=config.map_voxel_size,
+            max_points_per_voxel=config.max_points_per_voxel,
+        )
 
         # 7. periodic distant-voxel eviction (host-known schedule)
         removed = torch.zeros((), dtype=torch.int64, device=dev)
         if bool(do_evict) and config.remove_distant_points:
-            with record_function("evict"):
-                voxmap, removed = vm.evict_beyond(
-                    voxmap, T.t,
-                    voxel_size=config.map_voxel_size,
-                    distance_threshold=config.remove_distance_threshold,
-                    max_points_per_voxel=config.max_points_per_voxel,
-                )
+            stage(tracer, "evict")
+            voxmap, removed = vm.evict_beyond(
+                voxmap, T.t,
+                voxel_size=config.map_voxel_size,
+                distance_threshold=config.remove_distance_threshold,
+                max_points_per_voxel=config.max_points_per_voxel,
+            )
 
         n_points = processed.valid.sum()
         diag = {
@@ -148,6 +150,7 @@ def make_step_core(config: Config, device="cuda") -> Callable:
             # a non-finite pose means the filter diverged
             "pose_finite": torch.isfinite(T.t).all() & torch.isfinite(T.R).all(),
         }
+        stage(tracer, "end")
         return (corrected, voxmap, T.R, T.t), diag
 
     return core
@@ -188,13 +191,20 @@ class GraphedScanStep:
     A subclass captures another step of the same signature over other map
     buffers (`parallel/sharded_map.py::GraphedShardedScanStep`): it sets
     `diag_keys` and overrides `_make_core`, `_make_map`, `_run`,
-    `_assign_map` and `_map`."""
+    `_assign_map` and `_map`.
+
+    With a tracer, both graphs hold the step's stage stamps and a call
+    records the host spans `copy_in` (the assigns into the static buffers)
+    and `replay` (the graph's launch)."""
 
     diag_keys = DIAG_KEYS
 
-    def __init__(self, config: Config, device):
+    def __init__(self, config: Config, device, tracer=None):
         dev = device_policy.resolve(device)
         self.config = config
+        self.tracer = tracer
+        if tracer is not None:
+            tracer.attach(dev)
         self.core = self._make_core(config, dev)
         self._make_map(config, dev)
         self.chunk = _chunk_buffer(config, dev)
@@ -211,13 +221,14 @@ class GraphedScanStep:
         me = weakref.proxy(self)
         self.graphs = {
             evict: StepGraph(functools.partial(GraphedScanStep._step, me, evict), dev,
-                             config.max_raw_points, pool)
+                             config.max_raw_points, pool, tracer,
+                             "scan_step.evict" if evict else "scan_step")
             for evict in (False, True)
         }
 
     def _make_core(self, config: Config, dev) -> Callable:
         """The step function that is captured."""
-        return make_step_core(config, dev)
+        return make_step_core(config, dev, self.tracer)
 
     def _make_map(self, config: Config, dev) -> None:
         """The static map buffers."""
@@ -250,22 +261,30 @@ class GraphedScanStep:
         self.diag_vec.copy_(diag_vector(diag, self.diag_keys))
 
     def __call__(self, state, voxmap, prev_R, prev_t, chunk: ImuChunk, scan: Scan, do_evict):
+        tr = self.tracer
+        if tr is not None:
+            tr.begin("copy_in")
         assign(self.state, state)
         self._assign_map(voxmap)
         assign((self.prev_R, self.prev_t, *self.chunk, *self.scan),
                 (prev_R, prev_t, *chunk, *scan))
+        if tr is not None:
+            tr.switch("replay")
         self.graphs[bool(do_evict) and self.config.remove_distant_points]()
+        if tr is not None:
+            tr.end()
         return self.state, self._map(), self.prev_R, self.prev_t, self.diag
 
 
-def make_scan_step(config: Config, device="cuda") -> Callable:
+def make_scan_step(config: Config, device="cuda", tracer=None) -> Callable:
     """One scan: scan_step(state, voxmap, prev_R, prev_t, chunk, scan,
     do_evict) -> (state, voxmap, R, t, diag).  On a CUDA device a
-    `GraphedScanStep`; on the CPU `make_step_core` run eagerly."""
+    `GraphedScanStep`; on the CPU `make_step_core` run eagerly.  With a
+    tracer, the step's stages are marked."""
     dev = device_policy.resolve(device)
     if dev.type == "cuda":
-        return GraphedScanStep(config, dev)
-    core = make_step_core(config, dev)
+        return GraphedScanStep(config, dev, tracer)
+    core = make_step_core(config, dev, tracer)
 
     def scan_step(state, voxmap, prev_R, prev_t, chunk: ImuChunk, scan: Scan, do_evict):
         (corrected, voxmap, R, t), diag = core(
@@ -300,15 +319,16 @@ def make_init_step(config: Config, device="cuda") -> Callable:
 class GraphedPredict:
     """`make_predict_only`'s step on a CUDA device: the prediction through
     one chunk over a static state and chunk, captured once and replayed.
-    A call returns the static state (overwritten by the next call)."""
+    A call returns the static state (overwritten by the next call).  With
+    a tracer, the capture is traced."""
 
-    def __init__(self, config: Config, device):
+    def __init__(self, config: Config, device, tracer=None):
         dev = device_policy.resolve(device)
         self.noise = eskf.make_noise_params(config, dev)
         self.chunk = _chunk_buffer(config, dev)
         self.state = eskf.init_state(config, dev)
         self.graph = StepGraph(functools.partial(GraphedPredict._step, weakref.proxy(self)),
-                               dev, config.max_raw_points)
+                               dev, config.max_raw_points, tracer=tracer, name="predict_only")
 
     def _step(self) -> None:
         assign(self.state, eskf.predict_chunk_prefix(self.state, self.chunk, self.noise)[0])
@@ -319,12 +339,13 @@ class GraphedPredict:
         return self.state
 
 
-def make_predict_only(config: Config, device="cuda") -> Callable:
+def make_predict_only(config: Config, device="cuda", tracer=None) -> Callable:
     """Overflow path: advance the filter through a chunk without a scan.
-    On a CUDA device a `GraphedPredict`; on the CPU run eagerly."""
+    On a CUDA device a `GraphedPredict` (its capture traced with a tracer);
+    on the CPU run eagerly."""
     dev = device_policy.resolve(device)
     if dev.type == "cuda":
-        return GraphedPredict(config, dev)
+        return GraphedPredict(config, dev, tracer)
     noise = eskf.make_noise_params(config, dev)
 
     def predict_only(state: FilterState, chunk: ImuChunk) -> FilterState:
@@ -350,16 +371,20 @@ class _PinnedUploads:
         self.events: list[torch.cuda.Event | None] = [None, None]
         self.turn = 0
 
-    def upload(self, arrays) -> None:
+    def upload(self, arrays) -> bool:
+        """Stage and enqueue the copies; True when the staging set was still
+        being copied out of, and this waited for it."""
         slot, self.turn = self.turn, 1 - self.turn
         done = self.events[slot]
-        if done is not None and not done.query():
+        waited = done is not None and not done.query()
+        if waited:
             done.synchronize()
         for a, pinned, dst in zip(arrays, self.slots[slot], self.dsts):
             pinned.numpy()[...] = a  # the cast of `from_numpy` (f64 -> f32)
             dst.copy_(pinned, non_blocking=True)
         self.events[slot] = torch.cuda.Event()
         self.events[slot].record()
+        return waited
 
 
 # ---------------------------------------------------------------------------
@@ -397,12 +422,26 @@ class Odometry:
     page-locked buffers into fixed device buffers (the graphed step's static
     inputs), without waiting; on the CPU the step's own host branches (one
     per GN iteration, one in `insert`) are not in `device_reads`.
-    `graphed` and `step_reason` say which of the two the scan step is."""
+    `graphed` and `step_reason` say which of the two the scan step is.
+
+    With a tracer, `process_scan` records, for each sweep it poses (the
+    sweep's id: its index in the stream, the init sweep 0), the span
+    `process_scan` (from the gate's pass to the return: `timer` and then
+    `record`) and its children in order and without gaps: `chunk_build`
+    (the split of the pending IMU records, any overflow pre-advance and the
+    chunk's arrays), `scan_pack` (`native_runtime.pack_scan`), `upload` (both
+    staged uploads; the counter `upload_waits` counts those that waited for
+    a staging set), `step_launch` (the step's call and the bookkeeping before
+    the read-back), `read_back` (the host blocked until the pose is back)
+    and `record`; on the card also the step's device span `step`."""
 
     def __init__(self, config: Config, init_state: FilterState | None = None,
-                 device="cuda"):
+                 device="cuda", tracer=None):
         self.config = config
         self.device = device_policy.resolve(device)
+        self.tracer = tracer
+        # device spans only where there are CUDA events
+        self._device_tracer = tracer if self.device.type == "cuda" else None
 
         self.state = (
             init_state if init_state is not None else eskf.init_state(config, self.device)
@@ -453,9 +492,9 @@ class Odometry:
             "graph: on a CUDA device the scan step is captured" if self.graphed
             else f"eager: the step runs on the {self.device.type}"
         )
-        return (make_scan_step(self.config, self.device),
+        return (make_scan_step(self.config, self.device, self.tracer),
                 make_init_step(self.config, self.device),
-                make_predict_only(self.config, self.device))
+                make_predict_only(self.config, self.device, self.tracer))
 
     # -- chunk/scan packing ------------------------------------------------
 
@@ -467,10 +506,14 @@ class Odometry:
         if self._staging is None:
             return [from_numpy(a, self.device) for a in arrays]
         staging = self._staging[which]
-        staging.upload(arrays)
+        if staging.upload(arrays) and self.tracer is not None:
+            self.tracer.count("upload_waits")
         return staging.dsts
 
     def _build_chunk(self, records, t_end: float) -> ImuChunk:
+        return ImuChunk(*self._upload(self._chunk_arrays(records, t_end), 0))
+
+    def _chunk_arrays(self, records, t_end: float) -> list[np.ndarray]:
         m = self.config.max_imu_per_scan
         n = len(records)
         assert n <= m, f"chunk overflow: {n} > {m}"
@@ -487,19 +530,18 @@ class Odometry:
             accel[i] = r.accel
             valid[i] = True
             prev_t = r.t
-        return ImuChunk(*self._upload([dt, t_rel, gyro, accel, valid], 0))
+        return [dt, t_rel, gyro, accel, valid]
 
-    def _build_scan(self, rec: LidarRecord) -> tuple[Scan, int]:
+    def _pack_scan(self, rec: LidarRecord) -> tuple[list[np.ndarray], int]:
         # pad/truncate into the fixed device layout — the C++ fast path
         # when the native runtime is built, numpy otherwise.  Returns the
-        # scan AND the number of raw points dropped by the capacity cut
+        # arrays AND the number of raw points dropped by the capacity cut
         # (the reference never drops, `Subscriber.hpp:89-97` — a static
         # budget must, so the loss is surfaced, not silent).
         xyz, t_rel, valid, n_packed = native_runtime.pack_scan(
             rec.points, rec.t, rec.end_time, self.config.max_raw_points
         )
-        dropped_raw = max(len(rec.points) - int(n_packed), 0)
-        return Scan(*self._upload([xyz, t_rel, valid], 1)), dropped_raw
+        return [xyz, t_rel, valid], max(len(rec.points) - int(n_packed), 0)
 
     def _read_back(self, diag: dict) -> tuple[np.ndarray, np.ndarray, dict]:
         """The pose and the step's diagnostics on the host.  The values that
@@ -541,7 +583,7 @@ class Odometry:
             self.t_last_evict = t_end
             # drop IMU before the first scan end (ref `ErrorStateKF.cpp:66-69`)
             self.imu_pending = [r for r in self.imu_pending if r.t >= t_end]
-            scan, _ = self._build_scan(rec)
+            scan = Scan(*self._upload(self._pack_scan(rec)[0], 1))
             self.voxmap, _ = self.init_step(self.voxmap, scan)
             self._record(t_end, np.eye(3), np.zeros(3), None)
             self.prev_R = torch.eye(3, device=self.device)
@@ -564,6 +606,11 @@ class Odometry:
             return None
 
         t0 = time.perf_counter()
+        tr = self.tracer
+        if tr is not None:
+            t0_ns = int(t0 * 1e9)  # the timer's start on the tracer's clock
+            tr.begin("process_scan", len(self.trajectory_t), t0_ns)
+            tr.begin("chunk_build", t=t0_ns)
 
         # split pending: chunk = all samples up to and incl. first > t_end
         idx_over = next(
@@ -579,8 +626,19 @@ class Odometry:
             self.state = self.predict_only(self.state, c)
             self.t_last_update = head[-1].t
 
-        chunk = self._build_chunk(chunk_records, t_end)
-        scan, dropped_raw = self._build_scan(rec)
+        chunk_arrays = self._chunk_arrays(chunk_records, t_end)
+        if tr is not None:
+            tr.switch("scan_pack")
+        scan_arrays, dropped_raw = self._pack_scan(rec)
+        if tr is not None:
+            tr.switch("upload")
+        chunk = ImuChunk(*self._upload(chunk_arrays, 0))
+        scan = Scan(*self._upload(scan_arrays, 1))
+        if tr is not None:
+            tr.switch("step_launch")
+        dtr = self._device_tracer
+        if dtr is not None:
+            dspan = dtr.device_begin("step", len(self.trajectory_t))
 
         do_evict = bool(
             self.config.remove_distant_points
@@ -596,6 +654,8 @@ class Odometry:
             scan,
             do_evict,
         )
+        if dtr is not None:
+            dtr.device_end(dspan)
 
         # next chunk re-propagates overhang samples from the corrected state
         # (replaces the reference's rollback+replay, `ErrorStateKF.cpp:147-155`)
@@ -606,8 +666,12 @@ class Odometry:
 
         # the read waits for the step's device work, so the timer below
         # covers it whole
+        if tr is not None:
+            tr.switch("read_back")
         pose_R, pose_t, diag_host = self._read_back(diag)
         self.timer.add(time.perf_counter() - t0)
+        if tr is not None:
+            tr.switch("record")
         # raw points that never reached the device (non-finite or beyond
         # `max_raw_points`) — a silent-data-loss channel made visible
         diag_host["dropped_raw_points"] = np.asarray(dropped_raw)
@@ -620,6 +684,8 @@ class Odometry:
         else:
             self.zero_corr_streak = 0
         self._record(t_end, pose_R, pose_t, diag_host)
+        if tr is not None:
+            tr.end(tr.end())
         return diag_host
 
     def run(

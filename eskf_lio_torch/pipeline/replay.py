@@ -14,10 +14,18 @@ the CPU the rows run `make_step_core` eagerly.  Rows flagged
 interval than one chunk holds): the filter advances through the chunk, the
 map and pose carry pass through.  The control flags (`evicts`, `updates`)
 stay on the host.
+
+Built with a tracer (`utils.profiling.Tracer`), each row is a host span
+`row` whose id is the runner's count of rows, with the children `copy_in`
+(the assigns into the step's static inputs) and `replay` (the graph's
+launch) of `GraphedScanStep`, and `copy_out` (the writes into the stacked
+outputs); on the card the row's device span `row` from CUDA events, and the
+captured step's stage stamps.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import numpy as np
@@ -42,17 +50,20 @@ def _predict_row_diag(state: FilterState) -> dict:
     return diag
 
 
-def make_replay_step(config: Config, device="cuda") -> Callable:
+def make_replay_step(config: Config, device="cuda", tracer=None) -> Callable:
     """Runner over a stacked batch of rows:
     replay(state, voxmap, prev_R, prev_t, chunks, scans, evicts, updates)
     -> (state, voxmap, prev_R, prev_t, Rs [B,3,3], ts [B,3], diags) with
     chunks / scans stacked over B rows on the device, evicts / updates [B]
     host bools, and diags a dict of [B] tensors on the device.  On a CUDA
     device the steps are the captured ones and the returned carry is their
-    static buffers, which the next call overwrites."""
+    static buffers, which the next call overwrites.  With a tracer, every
+    row is traced (the module's docstring)."""
     dev = device_policy.resolve(device)
-    scan_step = odo.make_scan_step(config, dev)
-    predict = odo.make_predict_only(config, dev)
+    scan_step = odo.make_scan_step(config, dev, tracer)
+    predict = odo.make_predict_only(config, dev, tracer)
+    row_ids = itertools.count() if tracer is not None else None
+    device_tracer = tracer if dev.type == "cuda" else None
 
     def replay(state, voxmap, prev_R, prev_t, chunks: ImuChunk, scans: Scan,
                evicts, updates):
@@ -62,6 +73,11 @@ def make_replay_step(config: Config, device="cuda") -> Callable:
         diag_rows = torch.empty((n_rows, len(DIAG_KEYS)), dtype=torch.int64, device=dev)
         carry = [state, voxmap, prev_R, prev_t]
         for b in range(n_rows):
+            if tracer is not None:
+                row = next(row_ids)
+                tracer.begin("row", row)
+            if device_tracer is not None:
+                dspan = device_tracer.device_begin("row", row)
             chunk = ImuChunk(*(x[b] for x in chunks))
             if bool(updates[b]):
                 scan = Scan(*(x[b] for x in scans))
@@ -69,9 +85,15 @@ def make_replay_step(config: Config, device="cuda") -> Callable:
             else:
                 carry[0] = predict(carry[0], chunk)
                 diag = _predict_row_diag(carry[0])
+            if tracer is not None:
+                tracer.begin("copy_out")
             diag_rows[b] = odo.diag_vector(diag)
             Rs[b] = carry[2]
             ts[b] = carry[3]
+            if device_tracer is not None:
+                device_tracer.device_end(dspan)
+            if tracer is not None:
+                tracer.end(tracer.end())
         diags = {
             k: diag_rows[:, i].bool() if k in odo.DIAG_FLAGS else diag_rows[:, i]
             for i, k in enumerate(DIAG_KEYS)
@@ -223,15 +245,17 @@ def run_replay(
     max_scans: int | None = None,
     batch: int | None = None,
     device="cuda",
+    tracer=None,
 ):
     """Full offline run.  Returns (positions [S,3], rotations [S,3,3],
-    diags dict of numpy arrays, final voxmap), indexed by scan."""
+    diags dict of numpy arrays, final voxmap), indexed by scan; with a
+    tracer, its rows traced."""
     dev = device_policy.resolve(device)
     init_scan, chunks, scans, evicts, updates, _ = pack_sequence(
         config, seq, max_scans, dev
     )
     init_step = odo.make_init_step(config, dev)
-    replay = make_replay_step(config, dev)
+    replay = make_replay_step(config, dev, tracer)
 
     state = init_state if init_state is not None else eskf.init_state(config, dev)
     voxmap = vm.VoxelMap.create(

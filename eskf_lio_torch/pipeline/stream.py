@@ -18,6 +18,21 @@ consumes on the main thread.  Here:
   ingestion and device compute overlap like the reference's
   callback/consumer split.  Only the consumer touches the device: the
   ingest thread handles numpy records and nothing else.
+
+Built with a tracer (`utils.profiling.Tracer`), the runner records, by
+sweep id (a sweep's index in the source, the init sweep 0):
+
+* on the ingest thread, `scan_put` (the sweep's `put`, time blocked on the
+  full queue included; the counter `puts_blocked` counts the puts that found
+  the queue full) and `imu_push` for each IMU record, under the id of the
+  sweep it follows: the first after a sweep is the sample that covers it
+  (in a time-ordered source whose records never share a sweep's end time);
+* on the consumer, `scan_queue` (from the start of the put to the return
+  of the consumer's `get`), `gate` (from the first `process_scan` attempt
+  on the sweep to the start of the attempt that finds coverage, the IMU
+  drains between attempts included; the counter `gate_polls` counts the
+  attempts that found none), `Odometry.process_scan`'s spans, and `on_scan`
+  (the callback).
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ from eskf_lio_torch.config import Config
 from eskf_lio_torch.io import native_runtime
 from eskf_lio_torch.io.dataset import ImuRecord, LidarRecord, Sequence
 from eskf_lio_torch.pipeline.odometry import Odometry
+from eskf_lio_torch.utils.profiling import now
 
 
 class _ImuChannel:
@@ -106,12 +122,16 @@ class StreamingRunner:
     """Threaded streaming driver around `Odometry`.
 
     `run(source)` consumes any iterable of ImuRecord/LidarRecord (see
-    `merged_stream` for Sequence replay) with ingestion on a side thread.
+    `merged_stream` for Sequence replay) with ingestion on a side thread;
+    with a tracer, traced as the module's docstring says.
     """
 
-    def __init__(self, config: Config, scan_queue_depth: int = 4, device="cuda"):
+    def __init__(self, config: Config, scan_queue_depth: int = 4, device="cuda", tracer=None):
         self.config = config
-        self.odo = Odometry(config, device=device)
+        self.tracer = tracer
+        self.odo = Odometry(config, device=device, tracer=tracer)
+        # traced: the start of each sweep's put, for its `scan_queue` span
+        self._put_t: deque | None = deque() if tracer is not None else None
         self._imu = _ImuChannel()
         self._scans: queue.Queue = queue.Queue(maxsize=scan_queue_depth)
         self._done = threading.Event()
@@ -127,13 +147,26 @@ class StreamingRunner:
     # -- ingest side --------------------------------------------------------
 
     def _ingest(self, source: Iterable) -> None:
+        tr = self.tracer
+        sweep = -1
         try:
             for rec in source:
                 if self._stop.is_set():
                     break
                 if isinstance(rec, ImuRecord):
+                    if tr is not None:
+                        tr.begin("imu_push", sweep)
                     self._imu.push(rec)
+                    if tr is not None:
+                        tr.end()
                     continue
+                if tr is not None:
+                    sweep += 1
+                    t = now()
+                    tr.begin("scan_put", sweep, t)
+                    self._put_t.append(t)
+                    if self._scans.full():
+                        tr.count("puts_blocked")
                 # blocks while the consumer lags, but not past its end (the
                 # JAX runner leaves this thread blocked when `max_scans` cuts
                 # the run short)
@@ -143,6 +176,8 @@ class StreamingRunner:
                         break
                     except queue.Full:
                         pass
+                if tr is not None:
+                    tr.end()
         except BaseException as e:  # surface on the consumer side
             self._ingest_error = e
         finally:
@@ -160,6 +195,9 @@ class StreamingRunner:
             target=self._ingest, args=(source,), name="ingest", daemon=True
         )
         t.start()
+        tr = self.tracer
+        # traced: the sweep's id, its first attempt, the attempts that failed
+        sweep, gate_t, polls = -1, None, 0
         n_done = 0
         pending: LidarRecord | None = None
         while True:
@@ -174,9 +212,18 @@ class StreamingRunner:
                     if self._done.is_set() and self._scans.empty():
                         break
                     continue
+                if tr is not None:
+                    sweep += 1
+                    tr.record("scan_queue", self._put_t.popleft(), now(), sweep)
+                    gate_t, polls = None, 0
+            if tr is not None:
+                attempt_t = now()
+                gate_t = attempt_t if gate_t is None else gate_t
             out = self.odo.process_scan(pending)
             if out is None:
                 # not yet covered by IMU (ref `Odometry.cpp:65-69`)
+                if tr is not None:
+                    polls += 1
                 more = self._imu.pop_all()
                 for rec in more:
                     self.odo.feed_imu(rec)
@@ -185,8 +232,16 @@ class StreamingRunner:
                 continue
             pending = None
             n_done += 1
+            if tr is not None:
+                tr.record("gate", gate_t, attempt_t, sweep)
+                tr.count("gate_polls", polls)
+                tr.begin("on_scan", sweep)
             if on_scan is not None:
                 on_scan(self.odo)
+            if tr is not None:
+                tr.end()
+        if tr is not None and self.odo.device.type == "cuda":
+            tr.finish()  # the traced window's closing anchor
         self._stop.set()
         t.join(timeout=5.0)
         if self._ingest_error is not None:

@@ -69,6 +69,7 @@ GRAPH_COND = CudaKernel(
         "graph_cond_begin_body": [PTR, PTR],
         "graph_cond_end_body": [PTR, ctypes.POINTER(_SIZE), ctypes.POINTER(_SIZE), INT],
         "graph_cond_captured_nodes": [PTR, ctypes.POINTER(_SIZE)],
+        "graph_cond_stamp": [PTR, PTR, ctypes.c_longlong, _U64, PTR],
     },
 )
 _IF, _WHILE = 0, 1
@@ -289,23 +290,33 @@ class StepGraph:
     (static inputs, carry and outputs) and returns nothing: what it
     allocates lives in the graph's pool and is dead when it returns.
 
-    `capture_s`, `nodes` (top level and every conditional body) and
-    `bodies` (each conditional body in capture order: its kind, depth, nodes
-    and nodes by type) describe the capture; graphs that never run at once
-    may share a `pool`."""
+    `capture_s`, `nodes` (top level and every conditional body),
+    `stamp_nodes` (of those, the tracer's stamps) and `bodies` (each
+    conditional body in capture order: its kind, depth, nodes and nodes by
+    type) describe the capture; graphs that never run at once may share a
+    `pool`.  With a tracer (`utils.profiling.Tracer`), each capture is a
+    `graph_capture` span and its nodes the counters `graph_nodes.<name>` and
+    `stamp_nodes.<name>`."""
 
     def __init__(self, fn: Callable[[], None], device: torch.device, segscan_rows: int,
-                 pool=None):
+                 pool=None, tracer=None, name: str = "step"):
         self.fn = fn
+        self.tracer = tracer
+        self.name = name
         self.device = _indexed(device)
         self.segscan_rows = segscan_rows
         self.pool = pool if pool is not None else torch.cuda.graph_pool_handle()
         self.graph: torch.cuda.CUDAGraph | None = None
         self.capture_s: float | None = None
         self.nodes: int | None = None
+        self.stamp_nodes: int | None = None
         self.bodies: list[dict] | None = None
 
     def capture(self) -> None:
+        tr = self.tracer
+        if tr is not None:
+            tr.begin("graph_capture")
+            stamps0 = tr.stamps_captured
         stream = prepare(self.device, self.segscan_rows)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
@@ -334,6 +345,12 @@ class StepGraph:
         self.nodes = top.value + _LOCAL.nodes
         self.bodies = _LOCAL.bodies
         self.graph = graph
+        self.stamp_nodes = 0
+        if tr is not None:
+            tr.end()
+            self.stamp_nodes = tr.stamps_captured - stamps0
+            tr.count(f"graph_nodes.{self.name}", self.nodes)
+            tr.count(f"stamp_nodes.{self.name}", self.stamp_nodes)
 
     def __call__(self) -> None:
         if self.graph is None:

@@ -63,7 +63,7 @@ def graphed_on_cpu(odo, no_read: bool = True):
     from eskf_lio_torch.utils import graphs
 
     class Uncaptured:
-        def __init__(self, fn, device, segscan_rows, pool=None):
+        def __init__(self, fn, device, segscan_rows, pool=None, tracer=None, name="step"):
             self.fn = fn
 
         def __call__(self):

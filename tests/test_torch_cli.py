@@ -183,7 +183,8 @@ def test_cli_sync_checkpoint_and_resume_in_process(tmp_path, capsys):
 
 
 def test_cli_has_the_jax_clis_flags():
-    """Every option of the JAX CLI, with the same default, plus --device."""
+    """Every option of the JAX CLI, with the same default, plus --device and
+    --trace-out (off by default)."""
     import eskf_lio_tpu.cli as j_cli
 
     def options(main_fn):
@@ -209,6 +210,7 @@ def test_cli_has_the_jax_clis_flags():
 
     t_opts, j_opts = options(t_cli.main), options(j_cli.main)
     assert t_opts.pop("--device") == "cuda"
+    assert t_opts.pop("--trace-out") is None
     assert t_opts == j_opts
 
 

@@ -8,7 +8,10 @@ graphed replay and the graphed sharded driver against the eager step bit for
 bit (also under a one-process `nccl` group, whose all-reduces the graph
 holds), and short rounds of the graph stress test (`utils/graph_stress.py`);
 both kernels over inputs that end a registered host range
-(`utils/kernel_bounds.py`); the bench's LIGHT series (`eskf_lio_torch/bench.py`).
+(`utils/kernel_bounds.py`); the bench's LIGHT series (`eskf_lio_torch/bench.py`);
+the tracer's stage stamps inside the captured step (`utils/profiling.py`):
+the same bits with and without them, their nodes and nothing else, in order
+with one GN stamp a pass.
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -757,3 +760,109 @@ def test_bench_light_series_on_the_card(dev, capsys, monkeypatch):
     assert light["icp_convergence_rate"] >= 0.9 and light["ate_rmse_cm"] <= 1.0
     assert light["launches"] == {"gn_normal_eq": light["gn_iterations"], "segscan": 128}
     assert lines[0]["value"] == light["scans_per_sec"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the tracer's stamps inside the captured step (utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+# the stage marks of `make_step_core` and the GN tick, as captured: the tick
+# once at the top level (the first pass) and once in the WHILE node's body
+STAMPS_CAPTURED = {False: 8, True: 9}
+
+
+@pytest.fixture(scope="module")
+def stamped_replays():
+    """The same rows, with an eviction, through `make_replay_step` without a
+    tracer and with one: (rows, outputs and runner of each, the tracer, the
+    stamp launches the untraced runner made)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    from eskf_lio_torch.utils import profiling
+
+    dev = torch.device("cuda")
+    cfg = Config(
+        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), translation_noise=1e-4,
+        rotation_noise=3e-5, max_raw_points=8192, max_scan_points=4096,
+        max_imu_per_scan=48, hash_capacity_log2=14, remove_period=0.5,
+        remove_distance_threshold=8.0,
+    )
+    seq = dataset.make_synthetic_sequence(duration=1.5, points_per_scan=8000, seed=7)
+    init_scan, chunks, scans, evicts, updates, _ = replay.pack_sequence(cfg, seq, device=dev)
+    assert bool(evicts.any()) and bool(updates.all())
+
+    def run(tracer):
+        voxmap, _ = odometry.make_init_step(cfg, dev)(
+            vm.VoxelMap.create(cfg.hash_capacity, cfg.map_delta_capacity, device=dev), init_scan)
+        start = (eskf.init_state(cfg, dev), voxmap, torch.eye(3, device=dev),
+                 torch.zeros(3, device=dev))
+        step = replay.make_replay_step(cfg, dev, tracer)
+        *carry, Rs, ts, diags = step(*start, chunks, scans, evicts, updates)
+        torch.cuda.synchronize()
+        return (carry, Rs.clone(), ts.clone(), {k: v.clone() for k, v in diags.items()}), step
+
+    stamp_calls = []
+    call = graphs.GRAPH_COND.call
+
+    def counting(fn, *args):
+        stamp_calls.append(fn)
+        return call(fn, *args)
+
+    graphs.GRAPH_COND.call = counting
+    try:
+        plain = run(None)
+        untraced_stamps = stamp_calls.count("graph_cond_stamp")
+    finally:
+        graphs.GRAPH_COND.call = call
+    tracer = profiling.Tracer()
+    stamped = run(tracer)
+    return chunks.dt.shape[0], evicts, plain, stamped, tracer, untraced_stamps
+
+
+def test_a_stamped_step_gives_the_bits_of_an_unstamped_one(stamped_replays):
+    _, _, ((p_carry, p_Rs, p_ts, p_diags), _), ((s_carry, s_Rs, s_ts, s_diags), _), _, _ = \
+        stamped_replays
+    assert torch.equal(p_Rs, s_Rs) and torch.equal(p_ts, s_ts)
+    assert all(torch.equal(p_diags[k], s_diags[k]) for k in p_diags)
+    for x, y in zip((*p_carry[0], *p_carry[1]), (*s_carry[0], *s_carry[1])):
+        assert torch.equal(x, y)
+
+
+def test_the_stamps_add_their_nodes_and_nothing_else(stamped_replays):
+    """Each captured graph with stamps holds exactly its stamp marks more
+    nodes than the same graph without (one of them in the WHILE body), and
+    the untraced capture launched no stamp."""
+    _, _, (_, plain_step), (_, stamped_step), tracer, untraced_stamps = stamped_replays
+    assert untraced_stamps == 0
+    for evict, marks in STAMPS_CAPTURED.items():
+        plain, stamped = plain_step.scan_step.graphs[evict], stamped_step.scan_step.graphs[evict]
+        assert plain.stamp_nodes == 0 and stamped.stamp_nodes == marks
+        assert stamped.nodes == plain.nodes + marks
+        name = "scan_step.evict" if evict else "scan_step"
+        assert tracer.counters[f"graph_nodes.{name}"] == stamped.nodes
+        assert tracer.counters[f"stamp_nodes.{name}"] == marks
+        loops = [(p, s) for p, s in zip(plain.bodies, stamped.bodies) if p["kind"] == "while"]
+        assert len(loops) == 1 and loops[0][1]["nodes"] == loops[0][0]["nodes"] + 1
+    assert tracer.summary()["spans"]["graph_capture"]["count"] == 2
+
+
+def test_stamps_rise_within_a_row_with_one_gn_stamp_a_pass(stamped_replays):
+    n_rows, evicts, _, ((_, _, _, diags), _), tracer, _ = stamped_replays
+    rows = tracer.stage_rows()
+    assert len(rows) == n_rows
+    for b, row in enumerate(rows):
+        names = [n for n, _ in row]
+        times = [t for _, t in row]
+        assert all(a <= c for a, c in zip(times, times[1:]))
+        assert names.count("gn") == int(diags["icp_iterations"][b])
+        stages = [n for n in names if n != "gn"]
+        expect = ["predict", "preprocess", "align", "pose_update", "map_insert"]
+        assert stages == expect + (["evict"] if bool(evicts[b]) else []) + ["end"]
+    # the rows' stamps lie inside the rows' device spans, both on the host clock
+    spans = tracer.device_spans("row")
+    assert len(spans) == n_rows
+    slack_ns = 50e3
+    for row, (_, _, a, b) in zip(rows, spans):
+        assert a - slack_ns <= row[0][1] <= row[-1][1] <= b + slack_ns
+    clock = tracer.clock()
+    assert clock["anchors"] >= 2 and max(clock["wait_us"]) < 1e4
