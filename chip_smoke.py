@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # from the root of a checkout
 
 1. Device: prints the card's name and power limit (nvidia-smi) and builds
-   both CUDA kernels from `eskf_lio_torch/csrc/`, one nvcc per source, all
+   the CUDA sources of `eskf_lio_torch/csrc/`, one nvcc per source, all
    started together.
 2. Kernels: runs each kernel and its plain PyTorch version on the card at
    the main path's shapes (kernel A, the GN normal equations, at N = 16,384
@@ -29,11 +29,22 @@
    `index_add_`, and over `profile_preprocess`'s input at [131,072, 10],
    nearly every key its own segment, also against `torch.segment_reduce`),
    with device times, call times and bounds.
+   `preprocess_shapes`: the preprocessor's six kernels (`csrc/preprocess.cu`)
+   against the plain version (`preprocess_ref`) at every shape a later
+   phase gives them: mid360's and LIGHT's (24,576 raw points into 12,288)
+   and HEAVY's (131,072 into 32,768), timed, `ate_matrix`'s budget48k
+   (131,072 into 49,152), and the init step's path (no deskew) over a real
+   HEAVY scan: the same mask and points bit for bit, covariances within 4
+   ulps of 1, six launches counted a call; at the timed shapes each kernel
+   once a call, its device time, its bytes' bound and its share, the sorts'
+   and kernel B's time, the whole call's device and call time against the
+   plain version's.
    `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
-   process of its own, kernel B's values and kernel A's rows and mask in
-   host memory registered for the card up to their last byte, where a load
-   past the end is an illegal address (kernel B's was, at N a multiple of
-   the tile rows, before the halo fix).
+   process of its own, kernel B's values, kernel A's rows and mask and
+   every input of the preprocessor's kernels in host memory registered for
+   the card up to their last byte, where a load past the end is an illegal
+   address (kernel B's was, at N a multiple of the tile rows, before the
+   halo fix).
 3. The captured step.  `control_flow`: the conditional graph nodes
    (`csrc/graph_cond.cu` through `utils/graphs.py`: an if/else around a
    sort, a WHILE loop holding an IF) against Python control flow on the same
@@ -45,7 +56,8 @@
    with the launch counters set to 0 just before and read just after (the
    launches inside a graph are counted on the device); checks finite poses,
    convergence, ATE against ground truth, that the kernels were launched
-   exactly as often as the path needs, and that the warm half's rows waited
+   exactly as often as the path needs (kernel A once a GN iteration, kernel
+   B twice and the preprocessor's kernels six times a scan), and that the warm half's rows waited
    for the device 0 times (torch's sync debug mode, by calling line).
    `profile`: the eager step (`make_step_core`) over the same rows, its last
    five under torch.profiler (busy time, launches).  `graph`: the eager
@@ -155,7 +167,8 @@
    same run; and for the tools that replay
    (`light_stages`, `probe_adaptive`'s warm-up, `ate_matrix`,
    `bench_scaling_mesh`) the launches counted on the device: kernel A
-   D x Σ GN iterations, kernel B (D + 1) x update scans (D = 1 unsharded).
+   D x Σ GN iterations, kernel B (D + 1) x update scans (D = 1 unsharded),
+   the preprocessor's kernels 6 x update scans.
 9. Prints the kernels' JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}} — only when every phase passed.
 
@@ -617,7 +630,9 @@ def kernel_bounds_phase() -> dict:
     to their last byte (a load past the end is an illegal address there):
     kernel B's values at N a multiple of the tile rows, head rows against
     the plain version; kernel A's four row arrays and mask at N = 16,384,
-    12,288, 8,192 and two ragged N, its sums against the plain version."""
+    12,288, 8,192 and two ragged N, its sums against the plain version;
+    every input of the preprocessor's kernels, outputs bit-equal to a call
+    on device-resident inputs."""
     proc = subprocess.run([sys.executable, "-m", "eskf_lio_torch.utils.kernel_bounds"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     line = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")]
@@ -632,7 +647,10 @@ def kernel_bounds_phase() -> dict:
               f"kernel_bounds B N={s['n']} W={s['w']}: error {s['max_abs_err']}")
     for s in res["gn_shapes"]:
         check(s["rel_err"] <= GN_TOL, f"kernel_bounds A N={s['n']}: rel_err {s['rel_err']}")
-    out = {"segscan": res["shapes"], "gn_normal_eq": res["gn_shapes"]}
+    for s in res["pre_shapes"]:
+        check(s["equal"], f"kernel_bounds P N={s['n']} K={s['k']} {s['path']}: outputs differ")
+    out = {"segscan": res["shapes"], "gn_normal_eq": res["gn_shapes"],
+           "preprocess": res["pre_shapes"]}
     print("kernel_bounds " + json.dumps(out))
     return out
 
@@ -795,6 +813,8 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
     # the downsampler and `insert`, on every update scan and on the init scan
     check(launches["segscan"] == 2 * n_upd + 2,
           f"kernel B launches {launches['segscan']} != 2 x update scans + 2 = {2 * n_upd + 2}")
+    check(launches["preprocess"] == PRE_LAUNCHES * (n_upd + 1),
+          f"preprocess launches {launches['preprocess']} != {PRE_LAUNCHES} x {n_upd + 1} scans")
     check(res["device_syncs_in_rows_per_scan"] == 0,
           f"the replay's rows waited for the device: {res['sync_sites_in_rows_per_scan']}")
     res["_trajectory"] = (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
@@ -1183,6 +1203,9 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(
     # the downsampler and `insert`, on every update scan and on the init scan
     check(launches["segscan"] == per_scan * (n_upd + 1),
           f"kernel B launches {launches['segscan']} != {per_scan} x {n_upd + 1} scans")
+    # the preprocessor once a scan, whatever the shards
+    check(launches["preprocess"] == PRE_LAUNCHES * (n_upd + 1),
+          f"preprocess launches {launches['preprocess']} != {PRE_LAUNCHES} x {n_upd + 1} scans")
     return res, kept
 
 
@@ -1375,7 +1398,8 @@ def cli_phase(kernels) -> dict:
         check(points == voxels > 1000, f"PCD POINTS {points} != map voxels {voxels}")
         check(poses == 19, f"{poses} poses for the 19 scans of 2 s")
         check(res["checkpoint_files"] == ["arrays.npz", "meta.pkl"], "no checkpoint written")
-        check(res["launches"]["segscan"] == 2 * poses and res["launches"]["gn_normal_eq"] > 0,
+        check(res["launches"]["segscan"] == 2 * poses and res["launches"]["gn_normal_eq"] > 0
+              and res["launches"]["preprocess"] == PRE_LAUNCHES * poses,
               f"the CLI's run did not go through the kernels: {res['launches']}")
         return res["launches"]
 
@@ -1545,6 +1569,134 @@ def light_kernel_phase(dev) -> dict:
     res = {"gn_normal_eq": a, "segscan_downsample": down, "segscan_insert": ins,
            "tolerance": {"gn": GN_TOL, "seg": SEG_TOL}}
     print("light_shapes " + json.dumps(res))
+    return res
+
+
+PRE_LAUNCHES = 6  # the preprocessor's kernels' launches a scan (`preprocess.LAUNCHES`)
+# the preprocessor's kernels: bytes each reads and writes once at N raw
+# rows, K budget rows and M1 history rows (inputs through a permutation
+# counted once, as the bound counts them)
+PRE_KERNELS = ("key_deskew_kernel", "moments_kernel", "compact_kernel", "pass_z_kernel",
+               "pass_y_kernel", "pass_x_kernel")
+
+
+def preprocess_kernel_bytes(n: int, k: int, m1: int) -> dict:
+    return {
+        # points, times, mask; history, extrinsics -> key, offset
+        "key_deskew_kernel": n * (12 + 4 + 1) + m1 * (4 + 12 + 16 + 1) + 48 + n * (4 + 12),
+        # sorted key, permutation, offset -> moments, compaction key
+        "moments_kernel": n * (4 + 8 + 12) + n * (40 + 4),
+        # compaction key and permutation, packed key -> packed key
+        "compact_kernel": k * (4 + 8 + 4) + k * 4,
+        # key, two permutations, head sums -> moments, y key
+        "pass_z_kernel": k * (4 + 8 + 8 + 40) + k * (40 + 4),
+        # key, permutation, moments, packed key -> moments, x key
+        "pass_y_kernel": k * (4 + 8 + 40 + 4) + k * (40 + 4),
+        # key, four permutations, moments, packed key, offset -> points, covs, mask
+        "pass_x_kernel": k * (4 + 8 + 40 + 8 + 4 + 8 + 8 + 8 + 12) + k * (12 + 36 + 1),
+    }
+
+
+def preprocess_shape(dev, cfg, seed: int, timed: bool = True) -> dict:
+    """The preprocessor's kernels on a room sweep of `cfg.max_raw_points`
+    raw points into `cfg.max_scan_points` rows with a 65-row state history,
+    against the plain version on the card: the same mask and points bit for
+    bit, covariances within 4 ulps of 1.  `timed`: also each kernel once a
+    call, its device time, its bytes' bound and its share, the other
+    kernels' (sorts', kernel B's) time, and the whole call's device and call
+    time against the plain version's."""
+    import torch
+
+    from eskf_lio_torch.ops import preprocess as pre
+    from eskf_lio_torch.utils import kernel_bounds
+
+    n, k = cfg.max_raw_points, cfg.max_scan_points
+    scan, hist, T_il = kernel_bounds.room_scan(n, seed, dev)
+    run = lambda: pre.preprocess(scan, hist, T_il, cfg)
+    plain = lambda: pre.preprocess_ref(scan, hist, T_il, cfg)
+    launches = pre.KERNEL.launch_count()
+    got = run()
+    check(pre.KERNEL.launch_count() - launches == pre.LAUNCHES,
+          f"preprocess N={n} K={k}: {pre.KERNEL.launch_count() - launches} launches counted, "
+          f"not {pre.LAUNCHES}")
+    want = plain()
+    check(torch.equal(got.valid, want.valid) and torch.equal(got.points, want.points),
+          f"the preprocessor's kernels disagree with the plain version's mask or points at "
+          f"N={n} K={k}")
+    cov_err = float((got.covs - want.covs).abs().max())
+    print(f"preprocess kernels N={n} K={k}: {int(got.valid.sum())} points, "
+          f"cov max_abs_err={cov_err:.3e}")
+    check(cov_err <= 4 * 2.0**-23, f"the preprocessor's covariances are more than 4 ulps off "
+          f"at N={n} K={k}")
+    res = dict(n=n, k=k, points=int(got.valid.sum()), cov_max_abs_err=cov_err)
+    if not timed:
+        return res
+    ms, by_name = device_profile(run)
+    print_by_name(f"preprocess N={n}", by_name)
+    kern = {}
+    for name, n_bytes in preprocess_kernel_bytes(n, k, hist.t_rel.shape[0]).items():
+        hits = [v for key, v in by_name.items() if name in key]
+        check(len(hits) == 1 and hits[0]["per_call"] == 1,
+              f"kernel {name}: {hits} launches a call, not one")
+        b = bound(n_bytes, 0)
+        kern[name] = dict(ms=hits[0]["ms"], bytes=n_bytes, **b,
+                          share=b["bound_ms"] / hits[0]["ms"])
+    others = {key: v["ms"] for key, v in by_name.items()
+              if not any(name in key for name in PRE_KERNELS)}
+    res.update(device_ms=ms, kernels=kern, kernels_ms=sum(v["ms"] for v in kern.values()),
+               kernels_bound_ms=sum(v["bound_ms"] for v in kern.values()),
+               other_device_ms=sum(others.values()), other_kernels=len(others),
+               call_ms=event_ms(run), plain_device_ms=device_ms(plain),
+               plain_call_ms=event_ms(plain))
+    return res
+
+
+def pre_row(shapes: dict) -> dict:
+    """The preprocessor's row of the kernels line: the six kernels' device
+    time, their bytes' bound, the whole call's time and the plain version's
+    at HEAVY's shapes; the largest covariance error over every shape."""
+    heavy = shapes["heavy"]
+    return dict(max_abs_err=max(r["cov_max_abs_err"] for r in shapes.values()),
+                ms=heavy["kernels_ms"], call_ms=heavy["call_ms"],
+                plain_ms=heavy["plain_device_ms"], bound_ms=heavy["kernels_bound_ms"],
+                bound_by="bytes",
+                library_ms=None)  # no PyTorch call does the preprocessor's work
+
+
+def preprocess_kernel_phase(dev, config, scan_points) -> dict:
+    """The preprocessor's kernels against the plain version on the card at
+    every shape a path of this script gives them: mid360's and LIGHT's
+    (24,576 raw points into 12,288), HEAVY's (131,072 into 32,768: the
+    replay, the streaming and sharded drivers, the CLI and the bench's HEAVY
+    series), timed; `ate_matrix`'s budget48k (131,072 into 49,152); and the
+    init step's path (no deskew) over a real HEAVY scan."""
+    import torch
+
+    from eskf_lio_torch.config import Config
+    from eskf_lio_torch.ops import preprocess as pre
+    from eskf_lio_torch.tools import ate_matrix
+
+    res = {"mid360": preprocess_shape(dev, Config(max_raw_points=24576, max_scan_points=12288), 7),
+           "heavy": preprocess_shape(dev, config, 11)}
+    budget = dataclasses.replace(config, max_scan_points=ate_matrix.BUDGET_48K)
+    res["budget48k"] = preprocess_shape(dev, budget, 13, timed=False)
+    # padded to the raw budget with an invalid tail, as the replay packs it
+    n = config.max_raw_points
+    points = torch.zeros((n, 3), device=dev)
+    points[: scan_points.shape[0]] = scan_points
+    valid = torch.arange(n, device=dev) < scan_points.shape[0]
+    launches = pre.KERNEL.launch_count()
+    got = pre.downsample_and_covariances(points, valid, config)
+    check(pre.KERNEL.launch_count() - launches == pre.LAUNCHES,
+          "the init path's kernels were not launched six times")
+    want = pre.downsample_and_covariances_ref(points, valid, config)
+    check(torch.equal(got.valid, want.valid) and torch.equal(got.points, want.points),
+          "the init path's kernels disagree with the plain version's mask or points at HEAVY")
+    cov_err = float((got.covs - want.covs).abs().max())
+    check(cov_err <= 4 * 2.0**-23, "the init path's covariances are more than 4 ulps off")
+    res["init_heavy"] = dict(n=n, k=config.max_scan_points,
+                             points=int(got.valid.sum()), cov_max_abs_err=cov_err)
+    print("preprocess_shapes " + json.dumps(res))
     return res
 
 
@@ -2242,6 +2394,9 @@ def bench_phase(smi: str) -> dict:
         check(s["launches"]["segscan"] == 2 * s["update_rows"],
               f"{name}: kernel B launches {s['launches']['segscan']} != 2 x update rows "
               f"{2 * s['update_rows']}")
+        check(s["launches"]["preprocess"] == PRE_LAUNCHES * s["update_rows"],
+              f"{name}: preprocess launches {s['launches']['preprocess']} != {PRE_LAUNCHES} x "
+              f"update rows {s['update_rows']}")
     stages = last["stages_ms"]
     check(set(stages) == set(BENCH_STAGES) and all(stages[k] > 0 for k in BENCH_STAGES),
           f"the stage breakdown is incomplete: {stages}")
@@ -2284,6 +2439,7 @@ PROFILE_PIECES = (
     "deskew row gather [131k]", "sort2 @32k", "gather [32k,10]", "plane_regularize [32k]",
     "axis_pass z [32k,10]", "axis_pass y [32k,10]", "axis_pass x [32k,10]",
     "view probe [32k] @C=2^19", "preprocess FULL", "downsample+cov FULL",
+    "preprocess FULL plain", "downsample+cov FULL plain",
 )
 ALIGN_PARTS = ("linalg_solve6", "chol6_unrolled", "se3_exp", "transform_points_32k",
                "lookup_two_tier_32k", "gn_pallas_32k")
@@ -2311,7 +2467,7 @@ def launches_follow_the_rule(line: dict, what: str, shards: int = 1,
                              rows_key: str = "update_rows") -> None:
     """The launches counted on the device: kernel A once per GN iteration
     of each shard, kernel B once for the downsampler and once per shard's
-    insert a scan."""
+    insert a scan, the preprocessor's kernels `PRE_LAUNCHES` times a scan."""
     got = line["launches"]
     check(got["gn_normal_eq"] == shards * line["gn_iterations"] > 0,
           f"{what}: kernel A launched {got['gn_normal_eq']} times, not {shards} x "
@@ -2319,6 +2475,9 @@ def launches_follow_the_rule(line: dict, what: str, shards: int = 1,
     check(got["segscan"] == (shards + 1) * line[rows_key] > 0,
           f"{what}: kernel B launched {got['segscan']} times, not {shards + 1} x "
           f"{line[rows_key]} scans")
+    check(got["preprocess"] == PRE_LAUNCHES * line[rows_key],
+          f"{what}: the preprocessor's kernels launched {got['preprocess']} times, not "
+          f"{PRE_LAUNCHES} x {line[rows_key]} scans")
 
 
 def series_ok(line: dict, what: str, max_ate_cm: float) -> None:
@@ -2490,21 +2649,22 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from eskf_lio_torch.bench import bench_sequence, heavy_config, nvidia_smi_line
-    from eskf_lio_torch.ops import _cuda, gn_normal_eq, segscan
+    from eskf_lio_torch.ops import _cuda, gn_normal_eq, preprocess, segscan
     from eskf_lio_torch.utils import graphs
 
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     print(f"device: {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
-    # the two ported kernels, whose launches the paths count, and the
+    # the ported kernels, whose launches the paths count, and the
     # conditional nodes of the captured step
-    kernels = [gn_normal_eq.KERNEL, segscan.KERNEL]
+    kernels = [gn_normal_eq.KERNEL, segscan.KERNEL, preprocess.KERNEL]
     t0 = time.perf_counter()
-    secs = _cuda.build(kernels + [graphs.GRAPH_COND])
+    built = kernels + [graphs.GRAPH_COND]
+    secs = _cuda.build(built)
     print(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
           f"(parallel wall {time.perf_counter() - t0:.2f} s)")
-    for k in kernels + [graphs.GRAPH_COND]:
+    for k in built:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {k.name}: {line.strip()}")
@@ -2523,6 +2683,7 @@ def main() -> int:
         slices = slice_kernel_phase(dev, config, scan0)
         light_shapes = light_kernel_phase(dev)
         tool_shapes = tool_kernel_phase(dev, config, scan0)
+        preprocess_shapes = preprocess_kernel_phase(dev, config, scan0)
         res_b["bounds"] = kernel_bounds_phase()
         from eskf_lio_torch.pipeline import replay
 
@@ -2567,6 +2728,10 @@ def main() -> int:
          "eskf_lio_tpu/ops/gn_pallas.py:49"),
         ("segscan", res_b, "eskf_lio_torch/csrc/segscan.cu",
          "eskf_lio_tpu/ops/segscan.py:37"),
+        # the six kernels together at HEAVY's shapes; no Pallas kernel: they
+        # replace the chain of XLA ops of the JAX package's preprocessor
+        ("preprocess", pre_row(preprocess_shapes), "eskf_lio_torch/csrc/preprocess.cu",
+         "eskf_lio_tpu/ops/preprocess.py:186"),
     ]
     line = {
         "kernels": [
@@ -2594,6 +2759,7 @@ def main() -> int:
         "light_shapes": light_shapes,
         # both kernels at the shapes only the tools give them
         "tool_shapes": tool_shapes,
+        "preprocess_shapes": preprocess_shapes,
         "insert_shape": {"segscan_ms": res_b["insert_shape_ms"],
                          "call_ms": res_b["insert_shape_call_ms"],
                          "bound_ms": res_b["insert_shape_bound_ms"],

@@ -31,10 +31,11 @@ every row replays the captured step (`odometry.GraphedScanStep`).
 Timing.  A series warms up on the first half of its rows (the kernels'
 build, the init scan, every graph's capture and the rows themselves:
 `compile_s`) and times the second half between two
-`torch.cuda.synchronize()` calls; the launches of kernels A and B in the
-timed half are counted on the device.  The replay returns the captured
-step's static buffers as its carry, so the post-warm-up state and map are
-cloned for phase 3 before the timed half moves them.  Phase 3 captures
+`torch.cuda.synchronize()` calls; the launches of kernels A and B and of
+the preprocessor's kernels in the timed half are counted on the device.
+The replay returns the captured step's static buffers as its carry, so
+the post-warm-up state and map are cloned for phase 3 before the timed
+half moves them.  Phase 3 captures
 each stage as one `utils.graphs.StepGraph` over buffers it carries from one
 replay to the next (the state, the map, the step's carry, a moving guess:
 the JAX bench's scan bodies), replays it k times back to back between two
@@ -88,7 +89,7 @@ SEQUENCE_S = 13.0
 MIN_ROWS = 64  # the JAX bench's least sequence for a timed window
 # iterations per timing of each stage (the JAX bench's k)
 STAGE_ITERS = dict(predict=200, preprocess=30, align=20, insert=30, evict=20, full_step=30)
-KERNELS = (gn_normal_eq.KERNEL, segscan.KERNEL)
+KERNELS = (gn_normal_eq.KERNEL, segscan.KERNEL, preprocess.KERNEL)
 
 
 def make_config(max_raw_points: int, max_scan_points: int,

@@ -42,6 +42,7 @@ NVCC_FLAGS = (
 # ctypes argument kinds for the C signatures
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+FLOAT = ctypes.c_float
 
 
 def nvcc_path() -> str:
@@ -63,10 +64,12 @@ class CudaKernel:
     times the main path launched it, and the device buffers the kernel
     keeps from call to call."""
 
-    def __init__(self, name: str, source: str, functions: dict[str, list]):
+    def __init__(self, name: str, source: str, functions: dict[str, list],
+                 flags: tuple[str, ...] = ()):
         self.name = name
         self.source = CSRC_DIR / source
         self.functions = functions  # C entry point -> ctypes argtypes
+        self.flags = NVCC_FLAGS + flags  # `flags`: this source's own nvcc options
         self.launches = 0  # launches made outside a graph capture
         # (device index, stream) -> what the wrapper keeps there: a kernel
         # that resets its own scratch (ticket, epoch, partial sums) gets one
@@ -86,7 +89,7 @@ class CudaKernel:
 
     def library_path(self) -> Path:
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + " ".join(self.flags).encode()
         ).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}-{digest}.so"
 
@@ -179,7 +182,7 @@ def build(kernels: list[CudaKernel]) -> dict[str, float]:
         nvcc = nvcc or nvcc_path()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(k.source)]
+        cmd = [nvcc, *k.flags, "-o", str(tmp), str(k.source)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )

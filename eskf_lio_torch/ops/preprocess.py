@@ -16,6 +16,12 @@ Port of `eskf_lio_tpu/ops/preprocess.py` (the reference `CloudPreprocessor`):
 The per-voxel moment sums go through kernel B (`ops/segscan.py`).  Layouts,
 row orders and the overflow path are the JAX package's, so the outputs
 compare row for row.
+
+`preprocess` and `downsample_and_covariances` run the plain PyTorch
+versions `preprocess_ref` / `downsample_and_covariances_ref` for CPU
+tensors and, for CUDA tensors, six hand-written kernels between the key
+sorts (`csrc/preprocess.cu`, `KERNEL`) that do the plain versions' float32
+arithmetic in their order: the same keys, masks, row order and points.
 """
 
 from __future__ import annotations
@@ -26,11 +32,33 @@ from eskf_lio_torch.config import Config
 from eskf_lio_torch.ops import eig3, lie, segscan
 from eskf_lio_torch.ops import sortmerge as sm
 from eskf_lio_torch.ops import voxel as vx
+from eskf_lio_torch.ops._cuda import FLOAT, INT, PTR, CudaKernel, stream_handle
 from eskf_lio_torch.types import Pose, ProcessedScan, Scan, StateHistory
 
 _BITS = 10
 _MASK = (1 << _BITS) - 1
 INT32_MAX = sm.INT32_MAX
+
+KERNEL = CudaKernel(
+    "preprocess",
+    "preprocess.cu",
+    {
+        "preprocess_key": [PTR, PTR, INT, FLOAT, PTR, PTR, PTR],
+        "preprocess_key_deskew": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT,
+                                  FLOAT, PTR, PTR, PTR],
+        "preprocess_moments": [PTR, PTR, PTR, INT, INT, PTR, PTR, PTR],
+        "preprocess_compact": [PTR, PTR, PTR, INT, PTR, PTR],
+        "preprocess_pass_z": [PTR, PTR, PTR, PTR, INT, FLOAT, PTR, PTR, PTR],
+        "preprocess_pass_y": [PTR, PTR, PTR, PTR, INT, FLOAT, PTR, PTR, PTR],
+        "preprocess_pass_x": [PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, PTR, INT, INT, FLOAT,
+                              FLOAT, FLOAT, PTR, PTR, PTR, PTR],
+        "preprocess_max_states": [],
+    },
+    # no a*b+c contracted where the plain version rounds twice
+    flags=("-fmad=false",),
+)
+# launches of `KERNEL` a call of `preprocess` or `downsample_and_covariances`
+LAUNCHES = 6
 
 
 def deskew(
@@ -146,14 +174,15 @@ def _rotate_key(packed: torch.Tensor, axis: int) -> torch.Tensor:
     return torch.where(packed == INT32_MAX, INT32_MAX, r)
 
 
-def downsample_and_covariances(
+def downsample_and_covariances_ref(
     points: torch.Tensor,
     valid: torch.Tensor,
     config: Config,
 ) -> ProcessedScan:
     """First-point-per-voxel downsample + neighbourhood covariance, padded /
     compacted to `config.max_scan_points` (ref
-    `voxelDownsampleAndEstimateCovariances`, `CloudPreprocessor.cpp:76-127`)."""
+    `voxelDownsampleAndEstimateCovariances`, `CloudPreprocessor.cpp:76-127`),
+    in plain PyTorch on any device."""
     n = points.shape[0]
     k_out = config.max_scan_points
     vs = config.downsample_voxel_size
@@ -290,13 +319,161 @@ def downsample_and_covariances(
     return ProcessedScan(points=out_points, covs=cov_reg, valid=out_valid)
 
 
+def preprocess_ref(
+    scan: Scan,
+    hist: StateHistory,
+    T_il: Pose,
+    config: Config,
+) -> ProcessedScan:
+    """Full preprocessing in plain PyTorch: extrinsics → deskew →
+    downsample + covariances."""
+    pts_imu = T_il.apply(scan.points)
+    pts_desk = deskew(pts_imu, scan.t_rel, scan.valid, hist)
+    return downsample_and_covariances_ref(pts_desk, scan.valid, config)
+
+
 def preprocess(
     scan: Scan,
     hist: StateHistory,
     T_il: Pose,
     config: Config,
 ) -> ProcessedScan:
-    """Full preprocessing: extrinsics → deskew → downsample + covariances."""
-    pts_imu = T_il.apply(scan.points)
-    pts_desk = deskew(pts_imu, scan.t_rel, scan.valid, hist)
-    return downsample_and_covariances(pts_desk, scan.valid, config)
+    """Full preprocessing: extrinsics → deskew → downsample + covariances;
+    `preprocess_ref` for CPU tensors, the kernels for CUDA tensors."""
+    if scan.points.device.type == "cpu":
+        return preprocess_ref(scan, hist, T_il, config)
+    return _preprocess_kernels(scan, hist, T_il, config, _data_ptr)
+
+
+def downsample_and_covariances(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    config: Config,
+) -> ProcessedScan:
+    """Downsample + covariances of points already in the body frame, with no
+    deskew (the init step); `downsample_and_covariances_ref` for CPU
+    tensors, the kernels for CUDA tensors."""
+    if points.device.type == "cpu":
+        return downsample_and_covariances_ref(points, valid, config)
+    return _downsample_kernels(points, valid, config, _data_ptr)
+
+
+# ---- the CUDA path ----------------------------------------------------------
+
+
+def _data_ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _cuda_inputs(points: torch.Tensor, *others: torch.Tensor) -> torch.device:
+    dev = points.device
+    if dev.type != "cuda" or any(x.device != dev for x in others):
+        raise ValueError(
+            f"preprocess: tensors on {[str(x.device) for x in (points, *others)]}; all must be "
+            "on one CUDA device (or all on the CPU)"
+        )
+    if points.dtype != torch.float32:
+        raise TypeError(f"preprocess: the kernels take float32 points, got {points.dtype}")
+    n = points.shape[0]
+    if points.shape != (n, 3) or not 1 <= n < 2**31 // 10:
+        raise ValueError(
+            f"preprocess: points {tuple(points.shape)} must be [N, 3] with 1 <= N < 2^31 / 10"
+        )
+    return dev
+
+
+def _launcher(dev: torch.device, ptr):
+    """launch(fn, inputs, sizes, outputs): one kernel of `csrc/preprocess.cu`
+    on the current stream, with the C entry point's arguments in that
+    order: each input (a tensor, or None for an absent one) at the address
+    `ptr` gives, each output at its own."""
+    stream = stream_handle(dev)
+    capturing = torch.cuda.is_current_stream_capturing()
+
+    def launch(fn: str, inputs: tuple, sizes: tuple, outputs: tuple) -> None:
+        KERNEL.launch(fn, *map(ptr, inputs), *sizes, *(o.data_ptr() for o in outputs), stream,
+                      device=dev, capturing=capturing)
+
+    return launch
+
+
+def _preprocess_kernels(
+    scan: Scan, hist: StateHistory, T_il: Pose, config: Config, ptr,
+) -> ProcessedScan:
+    """`preprocess_ref` on a CUDA device through `csrc/preprocess.cu`: the
+    first kernel takes the raw points through the extrinsics and the deskew
+    to their voxel keys, rebuilding the scan-end pose and the per-state
+    transforms from `hist` in every block.  `ptr` gives the address a kernel
+    reads an input at (`_data_ptr`; `utils/kernel_bounds.py` stages the
+    inputs elsewhere)."""
+    dev = _cuda_inputs(scan.points, scan.t_rel, scan.valid, T_il.R, T_il.t, *hist)
+    n, m1 = scan.points.shape[0], hist.t_rel.shape[0]
+    if not 1 <= m1 <= KERNEL.query("preprocess_max_states"):
+        raise ValueError(f"preprocess: a state history of {m1} rows is outside the kernel's range")
+    launch = _launcher(dev, ptr)
+    skey = torch.empty(n, dtype=torch.int32, device=dev)
+    q = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    launch("preprocess_key_deskew",
+           tuple(x.contiguous() for x in (*scan, T_il.R, T_il.t, *hist)),
+           (m1, n, config.downsample_voxel_size), (skey, q))
+    return _downsample_keyed(skey, q, config, launch)
+
+
+def _downsample_kernels(
+    points: torch.Tensor, valid: torch.Tensor, config: Config, ptr,
+) -> ProcessedScan:
+    """`downsample_and_covariances_ref` on a CUDA device through
+    `csrc/preprocess.cu` (`ptr` as in `_preprocess_kernels`)."""
+    dev = _cuda_inputs(points, valid)
+    n = points.shape[0]
+    launch = _launcher(dev, ptr)
+    skey = torch.empty(n, dtype=torch.int32, device=dev)
+    q = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    launch("preprocess_key", (points.contiguous(), valid.contiguous()),
+           (n, config.downsample_voxel_size), (skey, q))
+    return _downsample_keyed(skey, q, config, launch)
+
+
+def _downsample_keyed(skey: torch.Tensor, q: torch.Tensor, config: Config, launch) -> ProcessedScan:
+    """The plain version's sorts with the kernels between them, from the
+    masked packed keys `skey` [N] and voxel-centred offsets `q` [N, 3]."""
+    n = skey.shape[0]
+    k_out = config.max_scan_points
+    kcap = min(n, k_out)
+    vs = config.downsample_voxel_size
+    dev = skey.device
+
+    def new(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    skey_s, perm1 = torch.sort(skey, stable=True)
+    raw, hkey = new(n, 10), new(n, dtype=torch.int32)
+    launch("preprocess_moments", (skey_s, perm1, q), (n, int(k_out < n)), (raw, hkey))
+    table_m = segscan.segsum_sorted(skey_s, raw)
+    # segment heads to the front: the overflow hash order or ascending
+    h_sorted, perm2 = torch.sort(hkey, stable=True)
+    perm2 = perm2[:kcap]
+    t_packed = new(kcap, dtype=torch.int32)
+    launch("preprocess_compact", (h_sorted[:kcap], perm2, skey_s), (kcap,), (t_packed,))
+    fk, perm3 = t_packed, None
+    if k_out < n:
+        fk, perm3 = torch.sort(t_packed, stable=True)  # back to ascending packed order
+    m_z, ky = new(kcap, 10), new(kcap, dtype=torch.int32)
+    launch("preprocess_pass_z", (fk, perm3, perm2, table_m), (kcap, vs), (m_z, ky))
+    ky_s, perm4 = torch.sort(ky, stable=True)
+    m_y, kx = new(kcap, 10), new(kcap, dtype=torch.int32)
+    launch("preprocess_pass_y", (ky_s, perm4, m_z, fk), (kcap, vs), (m_y, kx))
+    kx_s, perm5 = torch.sort(kx, stable=True)
+    out = ProcessedScan(new(k_out, 3), new(k_out, 3, 3), new(k_out, dtype=torch.bool))
+    launch("preprocess_pass_x", (kx_s, perm5, m_y, perm4, fk, perm3, perm2, perm1, q),
+           (kcap, k_out, vs, 1.0 - config.covariance_plane_factor,
+            float(config.min_neighbors_for_covariance)), out)
+    return out
+
+
+def reserve_capture(device: torch.device) -> None:
+    """Build and load the kernels and make the counter of captured launches
+    on `device` before a graph capture (utils/graphs.py); the kernels keep
+    no scratch."""
+    KERNEL.lib()
+    KERNEL.reserve_capture(device, 8)

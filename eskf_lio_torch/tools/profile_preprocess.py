@@ -12,7 +12,8 @@ no such subtraction), and, for a piece the port computes another way, how
 (`  port: ...`).  Beside the JAX pieces: the row
 gather the port's deskew runs in place of the one-hot product, and the
 three separable neighbourhood passes of the downsampler
-(`ops/preprocess.py::_axis_pass`).  Each piece is one captured graph
+(`ops/preprocess.py::_axis_pass`), and the whole stages' plain versions
+(on a card the whole stages run the kernels of `csrc/preprocess.cu`).  Each piece is one captured graph
 replayed k times less an empty graph's k replays (`bench.StageTimer`).
 """
 
@@ -150,10 +151,16 @@ def pieces(inp: dict, k: int = K, k_full: int = K_FULL) -> list[Piece]:
               lambda: vm._view_probe(inp["view"], inp["skey_k"]), k),
         Piece("preprocess FULL",
               lambda: preprocess.preprocess(inp["scan"], inp["hist"], inp["T_il"], config),
-              k_full),
+              k_full, "on a card the kernels of csrc/preprocess.cu"),
         Piece("downsample+cov FULL",
               lambda: preprocess.downsample_and_covariances(inp["pts"], inp["valid"], config),
-              k_full),
+              k_full, "on a card the kernels of csrc/preprocess.cu"),
+        Piece("preprocess FULL plain",
+              lambda: preprocess.preprocess_ref(inp["scan"], inp["hist"], inp["T_il"], config),
+              k_full, "not a JAX line: the plain version (ops/preprocess.py::preprocess_ref)"),
+        Piece("downsample+cov FULL plain",
+              lambda: preprocess.downsample_and_covariances_ref(inp["pts"], inp["valid"], config),
+              k_full, "not a JAX line: the plain version"),
     ]
 
 

@@ -51,7 +51,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from eskf_lio_torch.ops import gn_normal_eq, segscan
+from eskf_lio_torch.ops import gn_normal_eq, preprocess, segscan
 from eskf_lio_torch.ops._cuda import INT, PTR, CudaKernel
 from eskf_lio_torch.parallel import distributed as dist
 
@@ -256,6 +256,7 @@ def prepare(device: torch.device, segscan_rows: int) -> torch.cuda.Stream:
     GRAPH_COND.lib()
     gn_normal_eq.reserve_capture(device)
     segscan.reserve_capture(device, segscan_rows)
+    preprocess.reserve_capture(device)
     if device.index not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
         for depth in range(MAX_DEPTH):

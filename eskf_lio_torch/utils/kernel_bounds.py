@@ -1,6 +1,6 @@
-"""Kernels A and B over inputs that end where the device may read (no JAX
-counterpart: a check of the loads of `csrc/gn_normal_eq.cu` and
-`csrc/segscan.cu`).
+"""Kernels A and B and the preprocessor's kernels over inputs that end where
+the device may read (no JAX counterpart: a check of the loads of
+`csrc/gn_normal_eq.cu`, `csrc/segscan.cu` and `csrc/preprocess.cu`).
 
     python -m eskf_lio_torch.utils.kernel_bounds        # on the card, ~10 s
 
@@ -24,11 +24,21 @@ neighbour's bytes unseen unless the allocation ends a mapped range.
   slice at D = 4) and 32,768 (`tools.probe_align_parts`), whose full
   chunks take the 16-byte loads, and two ragged N, whose
   last chunk takes the 4-byte ones.
+* The preprocessor's six kernels: every input of every launch (the raw
+  scan, the state history and extrinsics, and each sort's keys and
+  permutation between the kernels), each ending its own range, at N raw
+  points and a K-row budget that are multiples of the 256-row blocks:
+  mid360's [24,576 -> 12,288] and HEAVY's [131,072 -> 32,768] with the
+  deskew, the init step's path (no deskew) at mid360's, and a budget that
+  cannot overflow [8,192 -> 8,192].  An input that is a slice (the first K
+  rows of a sort) is staged as the slice alone.  The outputs must equal,
+  bit for bit, those of the same call on device-resident inputs.
 
 Prints `ok B N W max_abs_err` per kernel-B shape (head rows against the
 plain version), `ok A N rel_err` per kernel-A shape (the sums against the
-plain version, relative to the sum of the terms' absolute values) and a
-last `kernel_bounds {...}` line.  A fault ends the process's CUDA context,
+plain version, relative to the sum of the terms' absolute values), `ok P N
+K path equal` per preprocessor shape, and a last `kernel_bounds {...}`
+line.  A fault ends the process's CUDA context,
 so callers run this in a process of its own and read its exit code.  A
 measuring tool: nothing in the package imports it.
 """
@@ -44,13 +54,18 @@ import sys
 import numpy as np
 import torch
 
+from eskf_lio_torch.config import Config
 from eskf_lio_torch.ops import gn_normal_eq as gn
-from eskf_lio_torch.ops import lie, segscan
+from eskf_lio_torch.ops import lie, preprocess, segscan
 from eskf_lio_torch.ops._cuda import stream_handle
+from eskf_lio_torch.types import Pose, Scan, StateHistory
 
 SHAPES = ((8192, 10), (16384, 10), (131072, 10), (24576, 10), (12288, 10), (49152, 10),
           (1024, 16), (16384, 1))
 GN_SHAPES = (16384, 12288, 8192, 32768, 8191, 1000)
+# (raw points N, scan budget K, path)
+PRE_SHAPES = ((24576, 12288, "deskew"), (131072, 32768, "deskew"), (24576, 12288, "init"),
+              (8192, 8192, "deskew"))
 CHUNK = 1 << 16  # host registrations end on 64 KiB borders here
 PAD_KEY = 2**31 - 1
 
@@ -138,6 +153,64 @@ def gn_call(n: int, scratch: torch.Tensor, rng, dev) -> float:
     return float((diff / scale.clamp(min=1e-30)).max())
 
 
+def room_scan(n_raw: int, seed: int, dev, n_states: int = 65) -> tuple[Scan, StateHistory, Pose]:
+    """A raw sweep as the step takes it: ~90 % of `n_raw` points on the
+    floor, walls and pillars of a 40 x 40 x 5 m room and in clutter, with an
+    invalid tail; point times over the 0.1 s sweep; a state history of
+    `n_states` rows over it (a smooth motion, the last rows invalid); the
+    extrinsics of a tilted, offset sensor."""
+    rng = np.random.default_rng(seed)
+    n = int(n_raw * 0.9)
+    k = n // 5
+    u = lambda lo, hi, m: rng.uniform(lo, hi, m)
+    ang = u(0, 2 * np.pi, k)
+    parts = [
+        np.column_stack([u(-20, 20, 2 * k), u(-20, 20, 2 * k), np.full(2 * k, -1.4)]),
+        np.column_stack([u(-20, 20, k), np.full(k, 19.5), u(-1.4, 3.6, k)]),
+        np.column_stack([3 + 0.4 * np.cos(ang), -2 + 0.4 * np.sin(ang), u(-1.4, 3.6, k)]),
+        np.column_stack([u(-20, 20, n - 4 * k), u(-20, 20, n - 4 * k), u(-1.4, 3.6, n - 4 * k)]),
+    ]
+    pts = np.concatenate(parts) + rng.normal(size=(n, 3)) * 0.01
+    pts = np.vstack([pts[rng.permutation(n)], np.zeros((n_raw - n, 3))]).astype(np.float32)
+    valid = np.arange(n_raw) < n
+    t_rel = np.where(valid, -0.1 + 0.1 * np.arange(n_raw) / n_raw, 0.0).astype(np.float32)
+    m = n_states
+    t = np.concatenate([[-0.105], np.linspace(-0.1, 0.005, m - 1)]).astype(np.float32)
+    p = (np.cumsum(rng.normal(size=(m, 3)) * 0.01, 0) + [0.3, -0.2, 0.05]).astype(np.float32)
+    r = (np.cumsum(rng.normal(size=(m, 3)) * 0.003, 0) + [0.01, -0.02, 0.3]).astype(np.float32)
+    q = lie.quat_exp(torch.as_tensor(r)).numpy()
+    h_valid = np.arange(m) < m - 3
+    T = lambda a: torch.as_tensor(a, device=dev)
+    R_il = lie.so3_exp(torch.tensor([0.02, -0.01, 0.05], device=dev))
+    return (Scan(T(pts), T(t_rel), T(valid)), StateHistory(T(t), T(p), T(q), T(h_valid)),
+            Pose(R_il, torch.tensor([-0.011, -0.02329, 0.04412], device=dev)))
+
+
+def preprocess_call(n: int, k: int, path: str, dev) -> bool:
+    """The preprocessor's kernels once on device-resident inputs and once
+    with every kernel input staged in host memory that ends a registered
+    range (`ending_a_range`); whether the outputs are the same bits."""
+    scan, hist, T_il = room_scan(n, n + k, dev)
+    cfg = Config(max_raw_points=n, max_scan_points=k)
+    with contextlib.ExitStack() as held:
+
+        def staged(t):
+            if t is None:
+                return 0
+            _, (start,) = held.enter_context(ending_a_range([t.cpu().numpy()]))
+            return start
+
+        if path == "init":
+            pts = T_il.apply(scan.points)
+            want = preprocess.downsample_and_covariances(pts, scan.valid, cfg)
+            got = preprocess._downsample_kernels(pts, scan.valid, cfg, staged)
+        else:
+            want = preprocess.preprocess(scan, hist, T_il, cfg)
+            got = preprocess._preprocess_kernels(scan, hist, T_il, cfg, staged)
+        torch.cuda.synchronize(dev)
+        return all(torch.equal(a, b) for a, b in zip(want, got))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_bounds: needs an NVIDIA GPU", file=sys.stderr)
@@ -159,8 +232,13 @@ def main() -> int:
         rel = gn_call(n, gn_scratch, rng, dev)
         print("ok A", n, rel, flush=True)
         gn_errs.append({"n": n, "rel_err": rel})
-    print("kernel_bounds " + json.dumps({"shapes": errs, "gn_shapes": gn_errs, "ok": True}),
-          flush=True)
+    pre = []
+    for n, k, path in PRE_SHAPES:
+        equal = preprocess_call(n, k, path, dev)
+        print("ok P", n, k, path, equal, flush=True)
+        pre.append({"n": n, "k": k, "path": path, "equal": equal})
+    print("kernel_bounds " + json.dumps({"shapes": errs, "gn_shapes": gn_errs,
+                                         "pre_shapes": pre, "ok": True}), flush=True)
     return 0
 
 

@@ -175,7 +175,7 @@ def test_run_series_matches_the_jax_bench(small_seq, tmp_path, monkeypatch):
     rms_cm = 100.0 * float(np.sqrt(np.mean(apart ** 2)))
     assert abs(t["ate_rmse_cm"] - j["ate_rmse_cm"]) <= rms_cm + 0.01
     # the plain paths count no kernel launch; the timed half's own counts
-    assert t["launches"] == {"gn_normal_eq": 0, "segscan": 0}
+    assert t["launches"] == {"gn_normal_eq": 0, "segscan": 0, "preprocess": 0}
     assert t["update_rows"] == 32 and t["gn_iterations"] >= 32
     assert set(j) <= set(t)
 

@@ -11,7 +11,11 @@ both kernels over inputs that end a registered host range
 (`utils/kernel_bounds.py`); the bench's LIGHT series (`eskf_lio_torch/bench.py`);
 the tracer's stage stamps inside the captured step (`utils/profiling.py`):
 the same bits with and without them, their nodes and nothing else, in order
-with one GN stamp a pass.
+with one GN stamp a pass; the preprocessor's kernels (`csrc/preprocess.cu`)
+against its plain version on the card, eagerly and captured, their launches,
+and the nodes they take out of the captured step, and against the JAX
+package's outputs on the same inputs (stored by
+`tests/test_torch_preprocess.py`, whose CPU cases check the file).
 
 Every test here needs an NVIDIA GPU: it carries the `cuda` marker and
 skips (from inside its fixture) where `torch.cuda.is_available()` is
@@ -26,6 +30,8 @@ terms in different orders, and nvcc contracts a*b+c into one FMA where
 torch rounds twice.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -35,11 +41,12 @@ from eskf_lio_torch.io import dataset
 from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.ops import gn_normal_eq as gn
 from eskf_lio_torch.ops import lie
+from eskf_lio_torch.ops import preprocess as pre
 from eskf_lio_torch.ops import segscan
 from eskf_lio_torch.models import eskf
 from eskf_lio_torch.pipeline import odometry, replay
 from eskf_lio_torch.pipeline.odometry import Odometry
-from eskf_lio_torch.types import ImuChunk
+from eskf_lio_torch.types import ImuChunk, Pose, Scan, StateHistory
 from eskf_lio_torch.utils import graphs
 
 torch.set_num_threads(2)
@@ -249,6 +256,22 @@ def test_gn_kernel_reads_nothing_past_the_end_of_its_rows(kernel_bounds_run):
     assert rc == 0, err[-2000:]
     assert [s["n"] for s in res["gn_shapes"]] == [16384, 12288, 8192, 32768, 8191, 1000]
     assert all(s["rel_err"] <= TOL for s in res["gn_shapes"])
+
+
+def test_preprocess_kernels_read_nothing_past_the_end_of_their_inputs(kernel_bounds_run):
+    """The same module's preprocessor case: every input of each of the six
+    kernels (the raw scan, the state history, each sort's keys and
+    permutation) in host memory registered up to its last byte, at N raw
+    points and K scan points that are multiples of the 256-row blocks, with
+    the deskew, without it (the init step) and with a budget that cannot
+    overflow: no fault, and the outputs equal, bit for bit, those of the
+    same call on device-resident inputs."""
+    rc, res, err = kernel_bounds_run
+    assert rc == 0, err[-2000:]
+    assert [(s["n"], s["k"], s["path"]) for s in res["pre_shapes"]] == [
+        (24576, 12288, "deskew"), (131072, 32768, "deskew"), (24576, 12288, "init"),
+        (8192, 8192, "deskew")]
+    assert all(s["equal"] for s in res["pre_shapes"])
 
 
 def test_segscan_kernel_all_unique_is_identity(dev):
@@ -744,7 +767,8 @@ def test_bench_light_series_on_the_card(dev, capsys, monkeypatch):
     series on the full 13 s sequence through the captured step, one line
     naming the card; 64 timed scans, convergence >= 0.9, ATE <= 1.0 cm (the
     JAX bench: 0.45), and the timed half's launches counted on the device:
-    kernel A once per GN iteration, kernel B twice per update row."""
+    kernel A once per GN iteration, kernel B twice and the preprocessor's
+    kernels six times per update row."""
     import json
 
     from eskf_lio_torch import bench
@@ -758,7 +782,8 @@ def test_bench_light_series_on_the_card(dev, capsys, monkeypatch):
     light = lines[0]["light"]
     assert light["timed_scans"] == 64 and light["update_rows"] == 64
     assert light["icp_convergence_rate"] >= 0.9 and light["ate_rmse_cm"] <= 1.0
-    assert light["launches"] == {"gn_normal_eq": light["gn_iterations"], "segscan": 128}
+    assert light["launches"] == {"gn_normal_eq": light["gn_iterations"], "segscan": 128,
+                                 "preprocess": 6 * 64}
     assert lines[0]["value"] == light["scans_per_sec"] > 0
 
 
@@ -866,3 +891,176 @@ def test_stamps_rise_within_a_row_with_one_gn_stamp_a_pass(stamped_replays):
         assert a - slack_ns <= row[0][1] <= row[-1][1] <= b + slack_ns
     clock = tracer.clock()
     assert clock["anchors"] >= 2 and max(clock["wait_us"]) < 1e4
+
+
+# ---------------------------------------------------------------------------
+# the preprocessor's kernels (csrc/preprocess.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+# (raw points N, scan budget K): mid360's cells; HEAVY's and the Hilti
+# rig's; a budget that cannot overflow; raw clouds that the budget pads; a
+# ragged N with an overflow that drops voxels
+PRE_CASES = {"mid360": (24576, 12288), "heavy": (131072, 32768), "no_overflow": (8192, 8192),
+             "padding": (6000, 8192), "ragged": (10001, 4096)}
+# covariances: the kernels take the plain version's float32 operations in
+# its order, with the cuBLAS products, reductions and cross products
+# rounded as torch rounds them on the card, so they agree to a few ulps of
+# their entries (at most 1 in absolute value)
+COV_TOL = 4 * 2.0**-23
+
+
+def pre_inputs(case, dev):
+    from eskf_lio_torch.utils import kernel_bounds
+
+    n, k = PRE_CASES[case]
+    scan, hist, T_il = kernel_bounds.room_scan(n, n + k, dev)
+    return scan, hist, T_il, Config(max_raw_points=n, max_scan_points=k)
+
+
+def assert_same_scan(got, want):
+    assert torch.equal(got.valid, want.valid)
+    assert torch.equal(got.points, want.points)  # so the voxel keys and the row order too
+    err = float((got.covs - want.covs).abs().max())
+    assert err <= COV_TOL, err
+
+
+@pytest.mark.parametrize("path", ["deskew", "init"])
+@pytest.mark.parametrize("case", sorted(PRE_CASES))
+def test_preprocess_kernels_match_the_plain_version(dev, case, path):
+    """`preprocess` (extrinsics and deskew in the first kernel) and the init
+    step's `downsample_and_covariances` against `preprocess_ref` /
+    `downsample_and_covariances_ref` on the same card: the same mask,
+    points bit for bit, covariances within `COV_TOL`; six launches of the
+    new source a call and kernel B's one, as before."""
+    scan, hist, T_il, cfg = pre_inputs(case, dev)
+    if path == "init":
+        pts = T_il.apply(scan.points)
+        run = lambda: pre.downsample_and_covariances(pts, scan.valid, cfg)
+        want = pre.downsample_and_covariances_ref(pts, scan.valid, cfg)
+    else:
+        run = lambda: pre.preprocess(scan, hist, T_il, cfg)
+        want = pre.preprocess_ref(scan, hist, T_il, cfg)
+    a0, b0 = pre.KERNEL.launch_count(), segscan.KERNEL.launch_count()
+    got = run()
+    assert pre.KERNEL.launch_count() - a0 == pre.LAUNCHES == 6
+    assert segscan.KERNEL.launch_count() - b0 == 1
+    assert got.points.shape == (cfg.max_scan_points, 3) and got.valid.sum() > 100
+    assert_same_scan(got, want)
+    again = run()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("case", ["mid360", "no_overflow"])
+def test_preprocess_kernels_in_a_captured_graph(dev, case):
+    """Captured into a graph (`utils.graphs.StepGraph`) and replayed twice:
+    the eager call's bits, and six launches a replay counted on the device."""
+    scan, hist, T_il, cfg = pre_inputs(case, dev)
+    eager = pre.preprocess(scan, hist, T_il, cfg)
+    static = [torch.empty_like(x) for x in eager]
+
+    def step():
+        for s_, x in zip(static, pre.preprocess(scan, hist, T_il, cfg)):
+            s_.copy_(x)
+
+    graph = graphs.StepGraph(step, dev, segscan_rows=cfg.max_raw_points)
+    a0, b0 = pre.KERNEL.launch_count(), segscan.KERNEL.launch_count()
+    graph()
+    graph()
+    torch.cuda.synchronize()
+    assert pre.KERNEL.launch_count() - a0 == 2 * pre.LAUNCHES
+    assert segscan.KERNEL.launch_count() - b0 == 2
+    assert all(torch.equal(a, b) for a, b in zip(static, eager))
+
+
+# the JAX package's inputs and outputs of `tests/test_torch_preprocess.py`'s
+# downsample and preprocess cases, which those cases keep current
+JAX_OUTPUTS = Path(__file__).parent / "data" / "preprocess_jax.npz"
+JAX_CASES = ("downsample.no_overflow", "downsample.overflow", "downsample.padding",
+             "preprocess.no_overflow", "preprocess.overflow")
+
+
+# a plane normal is well posed where the neighbourhood's two smallest
+# eigenvalues stand this share of its trace apart
+WELL_POSED_GAP = 1e-2
+
+
+@pytest.mark.parametrize("case", JAX_CASES)
+def test_preprocess_kernels_match_jax(dev, case):
+    """The kernels against the JAX package on the same inputs: the same
+    mask and row order, points at atol 1e-5 m, six launches a call, and the
+    covariances at the tolerances of `tests/test_torch_preprocess.py`'s CPU
+    cases (the downsample's at atol 1e-4; the preprocessor's at 1e-4 on
+    99 % of rows and within 0.05 on all) on every row whose plane normal
+    is well posed by the JAX package's own neighbourhood covariance.  Where
+    the two smallest eigenvalues nearly meet (a line-like neighbourhood),
+    the closed-form solver's arccos turns the last bits of the card's
+    arccos and cos (the plain version's on the card too) into a turn of the
+    normal inside that eigenspace, so there the row must only be what the
+    regularisation makes: the identity where the JAX package's is (fewer
+    than 3 neighbours), else I - (1 - eps) n n^T with a unit normal n."""
+    with np.load(JAX_OUTPUTS) as f:
+        a = {key[len(case) + 1:]: f[key] for key in f.files if key.startswith(case + ".")}
+    T = lambda *keys: (torch.as_tensor(a[k], device=dev) for k in keys)
+    n_raw, n_scan = (int(x) for x in a["sizes"])
+    cfg = Config(max_raw_points=n_raw, max_scan_points=n_scan)
+    a0 = pre.KERNEL.launch_count()
+    if case.startswith("downsample."):
+        got = pre.downsample_and_covariances(*T("points", "valid"), cfg)
+    else:
+        got = pre.preprocess(Scan(*T("points", "t_rel", "valid")),
+                             StateHistory(*T("hist_t", "hist_p", "hist_q", "hist_valid")),
+                             Pose(*T("R", "t")), cfg)
+    assert pre.KERNEL.launch_count() - a0 == 6
+    np.testing.assert_array_equal(got.valid.cpu().numpy(), a["out_valid"])
+    assert got.valid.sum() > 100
+    np.testing.assert_allclose(got.points.cpu().numpy(), a["out_points"], atol=1e-5)
+
+    covs, want = got.covs.cpu().numpy(), a["out_covs"]
+    lam = np.linalg.eigvalsh(a["out_raw_cov"].astype(np.float64))  # the K rows before padding
+    posed = np.ones(len(want), bool)
+    posed[: len(lam)] = lam[:, 1] - lam[:, 0] >= WELL_POSED_GAP * np.abs(lam).sum(1)
+    err = np.abs(covs - want).reshape(-1, 9).max(1)[posed]
+    if case.startswith("downsample."):
+        assert err.max() <= 1e-4
+    else:
+        assert np.mean(err <= 1e-4) >= 0.99
+        assert err.max() <= 0.05
+    eye = np.eye(3, dtype=np.float32)
+    few = (want == eye).all((1, 2))
+    assert (covs[few] == eye).all()
+    P = (eye - covs[~posed & ~few].astype(np.float64)) / (1.0 - cfg.covariance_plane_factor)
+    assert np.abs(P - P.transpose(0, 2, 1)).max() <= 1e-5
+    assert np.abs(np.trace(P, axis1=1, axis2=2) - 1.0).max() <= 1e-5
+    assert np.abs(P @ P - P).max() <= 1e-5
+
+
+def test_the_kernels_take_600_nodes_out_of_the_captured_step(dev, monkeypatch):
+    """The replay of `stamped_replays`' rows through the captured step with
+    the preprocessor's kernels and with its plain version: the kernels'
+    capture holds at least 600 nodes fewer, and the two runs give the same
+    poses bit for bit (the kernels' points are the plain version's)."""
+    cfg = Config(
+        imu=ImuConfig(gravity=(0.0, 0.0, -9.81)), translation_noise=1e-4,
+        rotation_noise=3e-5, max_raw_points=8192, max_scan_points=4096,
+        max_imu_per_scan=48, hash_capacity_log2=14,
+    )
+    seq = dataset.make_synthetic_sequence(duration=1.0, points_per_scan=8000, seed=7)
+    init_scan, chunks, scans, evicts, updates, _ = replay.pack_sequence(cfg, seq, device=dev)
+
+    def run():
+        voxmap, _ = odometry.make_init_step(cfg, dev)(
+            vm.VoxelMap.create(cfg.hash_capacity, cfg.map_delta_capacity, device=dev), init_scan)
+        start = (eskf.init_state(cfg, dev), voxmap, torch.eye(3, device=dev),
+                 torch.zeros(3, device=dev))
+        step = replay.make_replay_step(cfg, dev)
+        *_, Rs, ts, _ = step(*start, chunks, scans, evicts, updates)
+        torch.cuda.synchronize()
+        return Rs.clone(), ts.clone(), step.scan_step.graphs[False].nodes
+
+    Rs_k, ts_k, nodes_k = run()
+    with monkeypatch.context() as m:
+        m.setattr(pre, "preprocess", pre.preprocess_ref)
+        m.setattr(pre, "downsample_and_covariances", pre.downsample_and_covariances_ref)
+        Rs_p, ts_p, nodes_p = run()
+    assert nodes_k <= nodes_p - 600, (nodes_k, nodes_p)
+    assert torch.equal(Rs_k, Rs_p) and torch.equal(ts_k, ts_p)

@@ -66,9 +66,10 @@ def test_scan_covers_the_parallel_package_and_it_ships():
 
 
 def test_port_has_both_kernel_sources():
-    """Kernels A and B, and the conditional graph nodes of the captured step."""
+    """Kernels A and B, the conditional graph nodes of the captured step, and
+    the preprocessor's kernels."""
     names = {p.name for p in (ROOT / "eskf_lio_torch" / "csrc").glob("*.cu")}
-    assert names == {"gn_normal_eq.cu", "segscan.cu", "graph_cond.cu"}
+    assert names == {"gn_normal_eq.cu", "segscan.cu", "graph_cond.cu", "preprocess.cu"}
 
 
 @pytest.mark.parametrize("cls", ["Config", "ImuConfig"])

@@ -7,9 +7,19 @@ order are integer logic).  Points compare at atol 1e-5 m (f32 centre +
 offset arithmetic at ~10 m) and covariances at atol 1e-4 (f32 moment sums
 in other orders feed a closed-form eigenvector).  The deskew compares at
 atol 1e-5 m: per-point 3x3 products at ~10 m in f32.
+
+The JAX package's inputs and outputs of the downsample and preprocess cases
+(with its neighbourhood covariances before the regularisation) are also
+kept in `tests/data/preprocess_jax.npz`, which each case checks against
+what it just computed, so that `tests/test_torch_cuda.py` can hold the CUDA
+kernels to the JAX package on a machine without JAX.  Written by
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_preprocess.py
 """
 
+import contextlib
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -22,6 +32,7 @@ from eskf_lio_torch.ops import lie as t_lie
 from eskf_lio_torch.ops import preprocess as t_pre
 from eskf_lio_torch.types import Pose as TPose, Scan as TScan, StateHistory as THist
 from eskf_lio_tpu.config import Config as JConfig
+from eskf_lio_tpu.ops import eig3 as j_eig3
 from eskf_lio_tpu.ops import preprocess as j_pre
 from eskf_lio_tpu.types import Pose as JPose, Scan as JScan, StateHistory as JHist
 
@@ -30,6 +41,8 @@ torch.set_num_threads(2)
 # (max_raw_points, max_scan_points): the hash-ordered overflow path
 # (scan budget < raw), the no-overflow path, and padding (raw < budget)
 SIZES = {"overflow": (4096, 1024), "no_overflow": (4096, 4096), "padding": (2048, 4096)}
+PRE_CASES = ("overflow", "no_overflow")
+JAX_OUTPUTS = Path(__file__).parent / "data" / "preprocess_jax.npz"
 
 
 def room_scan(rng, n_raw, n_pts):
@@ -60,19 +73,72 @@ def history(rng, m=12):
     return t, p, q, valid
 
 
-@pytest.mark.parametrize("case", sorted(SIZES))
-def test_downsample_matches_jax(case):
+def downsample_case(case):
+    """The inputs of a downsample case: raw points, mask, (raw, scan) sizes."""
     n_raw, n_scan = SIZES[case]
     rng = np.random.default_rng(n_raw + n_scan)
     pts, _, valid = room_scan(rng, n_raw, min(n_raw, 4000))
-    jc = JConfig(max_raw_points=n_raw, max_scan_points=n_scan)
+    return dict(points=pts, valid=valid, sizes=np.asarray([n_raw, n_scan]))
+
+
+@contextlib.contextmanager
+def raw_covariances(into: list):
+    """Record the neighbourhood covariances [K, 3, 3] that the JAX package
+    hands to `plane_regularize`, before the regularisation."""
+    plane_regularize = j_eig3.plane_regularize
+
+    def record(cov, plane_factor):
+        into.append(np.asarray(cov))
+        return plane_regularize(cov, plane_factor)
+
+    j_eig3.plane_regularize = record
+    try:
+        yield
+    finally:
+        j_eig3.plane_regularize = plane_regularize
+
+
+def jax_outputs(j, raw: list) -> dict:
+    return dict(out_points=np.asarray(j.points), out_covs=np.asarray(j.covs),
+                out_valid=np.asarray(j.valid), out_raw_cov=raw[0])
+
+
+def jax_downsample(inp) -> dict:
+    n_raw, n_scan = (int(x) for x in inp["sizes"])
+    raw = []
+    with raw_covariances(raw):
+        j = j_pre.downsample_and_covariances(
+            jnp.asarray(inp["points"]), jnp.asarray(inp["valid"]),
+            JConfig(max_raw_points=n_raw, max_scan_points=n_scan))
+    return jax_outputs(j, raw)
+
+
+def assert_stored(name: str, inp: dict, out: dict) -> None:
+    """The stored inputs and JAX outputs of case `name` are these."""
+    with np.load(JAX_OUTPUTS) as f:
+        for key, value in {**inp, **out}.items():
+            np.testing.assert_array_equal(
+                f[f"{name}.{key}"], value,
+                err_msg=f"{JAX_OUTPUTS.name}: {name}.{key} is stale; write it again "
+                        "(JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_preprocess.py)")
+
+
+@pytest.mark.parametrize("case", sorted(SIZES))
+def test_downsample_matches_jax(case):
+    """CPU tensors take the plain version: no launch of the kernels."""
+    inp = downsample_case(case)
+    n_raw, n_scan = (int(x) for x in inp["sizes"])
+    pts, valid = inp["points"], inp["valid"]
     tc = TConfig(max_raw_points=n_raw, max_scan_points=n_scan)
-    j = j_pre.downsample_and_covariances(jnp.asarray(pts), jnp.asarray(valid), jc)
+    j = jax_downsample(inp)
+    assert_stored(f"downsample.{case}", inp, j)
+    launches = t_pre.KERNEL.launch_count()
     t = t_pre.downsample_and_covariances(torch.as_tensor(pts), torch.as_tensor(valid), tc)
-    np.testing.assert_array_equal(t.valid.numpy(), np.asarray(j.valid))
+    assert t_pre.KERNEL.launch_count() == launches
+    np.testing.assert_array_equal(t.valid.numpy(), j["out_valid"])
     assert t.valid.sum() > 100
-    np.testing.assert_allclose(t.points.numpy(), np.asarray(j.points), atol=1e-5)
-    np.testing.assert_allclose(t.covs.numpy(), np.asarray(j.covs), atol=1e-4)
+    np.testing.assert_allclose(t.points.numpy(), j["out_points"], atol=1e-5)
+    np.testing.assert_allclose(t.covs.numpy(), j["out_covs"], atol=1e-4)
 
 
 def test_deskew_matches_jax():
@@ -86,27 +152,54 @@ def test_deskew_matches_jax():
     np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=1e-5)
 
 
-def test_preprocess_matches_jax():
-    """Extrinsics + deskew + downsample; the same mask and order."""
+def preprocess_case(case):
+    """The inputs of a preprocess case: the raw scan, the state history,
+    the extrinsics, (raw, scan) sizes."""
     rng = np.random.default_rng(22)
     pts, t_rel, valid = room_scan(rng, 4096, 4000)
-    hist = history(rng)
+    ht, hp, hq, hv = history(rng)
     R = t_lie.so3_exp(torch.tensor([0.01, -0.02, 0.3])).numpy()
     tt = np.asarray([0.1, -0.05, 0.2], np.float32)
-    cfg = dict(max_raw_points=4096, max_scan_points=2048)
-    j = j_pre.preprocess(JScan(*(jnp.asarray(a) for a in (pts, t_rel, valid))),
-                         JHist(*(jnp.asarray(a) for a in hist)),
-                         JPose(jnp.asarray(R), jnp.asarray(tt)), JConfig(**cfg))
-    t = t_pre.preprocess(TScan(*(torch.as_tensor(a) for a in (pts, t_rel, valid))),
-                         THist(*(torch.as_tensor(a) for a in hist)),
-                         TPose(torch.as_tensor(R), torch.as_tensor(tt)), TConfig(**cfg))
-    np.testing.assert_array_equal(t.valid.numpy(), np.asarray(j.valid))
-    np.testing.assert_allclose(t.points.numpy(), np.asarray(j.points), atol=1e-5)
+    sizes = np.asarray([4096, 2048 if case == "overflow" else 4096])
+    return dict(points=pts, t_rel=t_rel, valid=valid, hist_t=ht, hist_p=hp, hist_q=hq,
+                hist_valid=hv, R=R, t=tt, sizes=sizes)
+
+
+def jax_preprocess(inp) -> dict:
+    J = lambda *keys: (jnp.asarray(inp[k]) for k in keys)
+    n_raw, n_scan = (int(x) for x in inp["sizes"])
+    raw = []
+    with raw_covariances(raw):
+        j = j_pre.preprocess(JScan(*J("points", "t_rel", "valid")),
+                             JHist(*J("hist_t", "hist_p", "hist_q", "hist_valid")),
+                             JPose(*J("R", "t")),
+                             JConfig(max_raw_points=n_raw, max_scan_points=n_scan))
+    return jax_outputs(j, raw)
+
+
+@pytest.mark.parametrize("case", PRE_CASES)
+def test_preprocess_matches_jax(case):
+    """Extrinsics + deskew + downsample; the same mask and order, on both
+    sides of the budget's overflow branch.  CPU tensors take the plain
+    version: no launch of the kernels."""
+    inp = preprocess_case(case)
+    j = jax_preprocess(inp)
+    assert_stored(f"preprocess.{case}", inp, j)
+    T = lambda *keys: (torch.as_tensor(inp[k]) for k in keys)
+    n_raw, n_scan = (int(x) for x in inp["sizes"])
+    launches = t_pre.KERNEL.launch_count()
+    t = t_pre.preprocess(TScan(*T("points", "t_rel", "valid")),
+                         THist(*T("hist_t", "hist_p", "hist_q", "hist_valid")),
+                         TPose(*T("R", "t")),
+                         TConfig(max_raw_points=n_raw, max_scan_points=n_scan))
+    assert t_pre.KERNEL.launch_count() == launches
+    np.testing.assert_array_equal(t.valid.numpy(), j["out_valid"])
+    np.testing.assert_allclose(t.points.numpy(), j["out_points"], atol=1e-5)
     # the deskewed inputs differ by ~1 ulp; a near-isotropic neighbourhood
     # (corner, pillar edge) has a small eigengap, which turns that into a
     # visible tilt of its plane normal.  So: 99 % of rows at 1e-4, all
     # rows within 0.05 (a normal tilted by < 3 degrees).
-    err = np.abs(t.covs.numpy() - np.asarray(j.covs)).reshape(-1, 9).max(1)
+    err = np.abs(t.covs.numpy() - j["out_covs"]).reshape(-1, 9).max(1)
     assert np.mean(err <= 1e-4) >= 0.99
     assert err.max() <= 0.05
 
@@ -122,3 +215,21 @@ def test_few_neighbours_get_identity():
     out = t_pre.downsample_and_covariances(torch.as_tensor(pts), torch.as_tensor(valid), cfg)
     assert out.valid.sum() == 1
     np.testing.assert_array_equal(out.covs[0].numpy(), np.eye(3, dtype=np.float32))
+
+
+def write_jax_outputs() -> None:
+    """Store every downsample and preprocess case's inputs and JAX outputs."""
+    arrays = {}
+    for prefix, cases, make, run in (("downsample", sorted(SIZES), downsample_case, jax_downsample),
+                                     ("preprocess", PRE_CASES, preprocess_case, jax_preprocess)):
+        for case in cases:
+            inp = make(case)
+            for key, value in {**inp, **run(inp)}.items():
+                arrays[f"{prefix}.{case}.{key}"] = value
+    JAX_OUTPUTS.parent.mkdir(exist_ok=True)
+    np.savez_compressed(JAX_OUTPUTS, **arrays)
+    print(f"wrote {JAX_OUTPUTS} ({JAX_OUTPUTS.stat().st_size} bytes, {len(arrays)} arrays)")
+
+
+if __name__ == "__main__":
+    write_jax_outputs()

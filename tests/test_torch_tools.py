@@ -170,7 +170,7 @@ def test_light_stages_prints_the_series_and_its_stages(bench_seq):
                     series=bench.Series(small_config(), bench_seq, POINTS, 50.0))
     series, stages = (json.loads(line) for line in lines)
     assert jax_series_keys() <= set(series)
-    assert series["timed_scans"] == 32 and series["launches"] == {"gn_normal_eq": 0, "segscan": 0}
+    assert series["timed_scans"] == 32 and series["launches"] == {"gn_normal_eq": 0, "segscan": 0, "preprocess": 0}
     assert set(stages) == {"light_stages_ms"}
     st = stages["light_stages_ms"]
     assert set(st) == {"predict", "preprocess", "align", "align_iters", "insert", "evict",
@@ -203,7 +203,8 @@ def test_profile_preprocess_lines():
         "segment_sum [4k,10]", "segscan kernel [4k,10]", "one-hot deskew matmul",
         "deskew row gather [4k]", "sort2 @1k", "gather [1k,10]", "plane_regularize [1k]",
         "axis_pass z [1k,10]", "axis_pass y [1k,10]", "axis_pass x [1k,10]",
-        "view probe [1k] @C=2^12", "preprocess FULL", "downsample+cov FULL"]
+        "view probe [1k] @C=2^12", "preprocess FULL", "downsample+cov FULL",
+        "preprocess FULL plain", "downsample+cov FULL plain"]
 
 
 def np_of(x):
@@ -413,7 +414,7 @@ def test_probe_adaptive_lines_and_iterations_are_jax_aligns():
     m = re.match(r"^warm map voxels: (\d+)$", lines[0])
     assert m and int(m.group(1)) > 0
     warm = json.loads(lines[1])["warm_up"]
-    assert warm["launches"] == {"gn_normal_eq": 0, "segscan": 0}
+    assert warm["launches"] == {"gn_normal_eq": 0, "segscan": 0, "preprocess": 0}
     assert warm["update_rows"] == 8 and warm["gn_iterations"] >= 8
     variants = [json.loads(line) for line in lines[2:]]
     assert [v["variant"] for v in variants] == list(probe_adaptive.VARIANTS)
@@ -521,7 +522,7 @@ def test_bench_scaling_mesh_lines():
         assert line["capture_s"] is None  # eager on the CPU
         assert {k: line[k] for k in ("per_device_slice", "per_device_map_rows")} == \
             bench_scaling_mesh.static_line(small_config(), n_dev)
-        assert line["launches"] == {"gn_normal_eq": 0, "segscan": 0}
+        assert line["launches"] == {"gn_normal_eq": 0, "segscan": 0, "preprocess": 0}
         assert line["gn_iterations"] >= 2
     assert len(lines) == 2
 
