@@ -1874,7 +1874,7 @@ def sharded_phase(seq, kernels, single, slices):
     for d, block in enumerate(first_map):
         for skey in (block.skey, block.d_skey):
             live = skey[skey != sm.INT32_MAX]
-            keys = sm.unpack_keys(sm.packed_of_skey(live), block.origin)
+            keys = sm.unpack_keys(sm.packed_of_skey(live), block.origin, config.map_key_bits)
             foreign += int((vx.owner_hash(keys, N_SHARDS) != d).sum())
     whole = vm.VoxelMap(*(torch.cat(fields) for fields in zip(*first_map)))
     whole = whole._replace(origin=first_map[0].origin)

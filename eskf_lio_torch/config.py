@@ -3,7 +3,9 @@
 A copy of `eskf_lio_tpu/config.py`, kept in the port so that the port
 imports nothing of the JAX package.  Fields, defaults and the YAML loader
 are the same; `tests/test_torch_package.py` holds the two dataclasses
-field for field so the copy cannot drift.  The schema is the reference's
+field for field so the copy cannot drift.  One field is the port's own and
+comes last, `map_key_bits`, whose default is the JAX package's layout.
+The schema is the reference's
 (`config/hilti_config.yaml:1-53`) plus the static capacity knobs of the
 fixed-shape design (the YAML `tpu:` section keeps its name, so one file
 configures both packages).  Every time or rate quoted in the field
@@ -178,6 +180,15 @@ class Config:
     # pose moves up to `halo` metres away from the guess during GN.
     # Must be < map_voxel_size; costs ~(1 + 6*halo/voxel_size)x slice load.
     shard_halo: float = 0.02
+    # --- the port's own (no JAX counterpart) -----------------------------
+    # The voxel map's key split: bits per axis (x, y, z) of the packed key
+    # around the map's origin, which each eviction re-centres on the sensor
+    # (`map/voxel_map.py`, `ops/sortmerge.py::pack_keys`).  (10, 10, 10) is
+    # the JAX package's layout, +-512 voxels a side (+-153.6 m at 0.3 m);
+    # at most 31 bits in all.  A car that travels ~100 m between evictions
+    # and sees 100 m ahead needs more: (11, 11, 9) is +-307.2 m across and
+    # +-76.8 m in height at 0.3 m (benchmark/configs/hdl64-urban.json).
+    map_key_bits: tuple[int, int, int] = (10, 10, 10)
 
     @property
     def hash_capacity(self) -> int:
@@ -285,5 +296,7 @@ def load_config(path: str) -> Config:
     ):
         if key in tpu:
             kwargs[key] = tpu[key]
+    if "map_key_bits" in tpu:
+        kwargs["map_key_bits"] = tuple(int(b) for b in tpu["map_key_bits"])
 
     return Config(**kwargs)

@@ -13,7 +13,14 @@ the JAX layout kept exactly so the two compare word for word:
   headroom (the main view is 128 MiB at C = 2^19);
 * lookup = one bucket-row gather per tier; insert = one stable sort, a
   segment sum, one d_view probe, capped merge / append; a batch whose new
-  voxels would overflow the delta folds delta + batch into MAIN.
+  voxels would overflow the delta folds delta + batch into MAIN;
+* keys are packed around `origin` with `key_bits` = (x, y, z) bits per
+  axis (`ops.sortmerge.pack_keys`), a Python constant of each call: the
+  JAX package's (10, 10, 10) by default, +-512 voxels on each axis; a
+  configuration whose sensor travels farther between evictions (each
+  re-centres the origin on the sensor) takes a wider split
+  (`Config.map_key_bits`).  A point whose voxel lies outside the span is
+  not inserted (`insert_split`'s span count) and its lookup misses.
 
 Translation notes: JAX's out-of-range scatter indices are dropped
 (`mode="drop"`); here such rows go to one extra dump row that is sliced
@@ -40,8 +47,10 @@ from eskf_lio_torch.ops import segscan
 from eskf_lio_torch.ops import sortmerge as sm
 from eskf_lio_torch.ops import voxel as vx
 from eskf_lio_torch.utils.graphs import device_if
+from eskf_lio_torch.utils.profiling import device_count, stage
 
 INT32_MAX = sm.INT32_MAX
+DEFAULT_KEY_BITS = sm.DEFAULT_KEY_BITS
 
 VIEW_ASSOC = 8
 VIEW_HEADROOM = 4  # total view slots = VIEW_HEADROOM * capacity
@@ -117,10 +126,10 @@ class VoxelMap(NamedTuple):
         """[C] packed voxel keys, derived from skey by the inverse mixer."""
         return sm.packed_of_skey(self.skey)
 
-    @property
-    def keys(self) -> torch.Tensor:
-        """[C, 3] voxel integer coords (valid where live())."""
-        return sm.unpack_keys(self.packed, self.origin)
+    def keys(self, key_bits) -> torch.Tensor:
+        """[C, 3] voxel integer coords (valid where live()) of a map packed
+        with the split `key_bits` (`Config.map_key_bits`)."""
+        return sm.unpack_keys(self.packed, self.origin, key_bits)
 
     @staticmethod
     def create(
@@ -128,13 +137,16 @@ class VoxelMap(NamedTuple):
         delta_capacity: int | None = None,
         dtype=torch.float32,
         device="cuda",
+        key_bits=DEFAULT_KEY_BITS,
     ) -> "VoxelMap":
+        """An empty map whose key span is centred on voxel (0, 0, 0)."""
         dev = device_policy.resolve(device)
         d = delta_capacity if delta_capacity is not None else max(
             capacity // 16, 2048
         )
+        origin = [-h for h in sm.half_span(sm.check_key_bits(key_bits))]
         return VoxelMap(
-            origin=torch.full((3,), -512, dtype=torch.int32, device=dev),
+            origin=torch.tensor(origin, dtype=torch.int32, device=dev),
             skey=torch.full((capacity,), INT32_MAX, dtype=torch.int32, device=dev),
             payload=torch.zeros((capacity, 10), dtype=dtype, device=dev),
             view=_empty_view(capacity, dev),
@@ -286,13 +298,13 @@ def _combine_rows(stats, add_raw, cap):
 
 
 def lookup(vmap: VoxelMap, points: torch.Tensor, *, voxel_size: float,
-           max_points_per_voxel: int = 1000):
+           max_points_per_voxel: int = 1000, key_bits=DEFAULT_KEY_BITS):
     """Per-point single-voxel correspondence lookup (ref
     `correspondenceMatching`, `LocalMap.cpp:78-109`).  Returns (mean [N,3],
     cov_packed [N,6], hit [N] bool), combining the main entry with any
     pending delta sums for the same voxel."""
     keys = vx.voxel_key(points, voxel_size)
-    packed, in_range = sm.pack_keys(keys, vmap.origin)
+    packed, in_range = sm.pack_keys(keys, vmap.origin, key_bits)
     return lookup_packed(
         vmap, packed, in_range, max_points_per_voxel=max_points_per_voxel
     )
@@ -377,8 +389,33 @@ def _empty_delta(vmap: VoxelMap):
 # ---------------------------------------------------------------------------
 
 
+def _bucket_rank(miss: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Segmented rank of slot-claiming misses within their (contiguous)
+    bucket runs: each miss's rank among the misses of its bucket."""
+    n = miss.shape[0]
+    bhead = torch.ones(n, dtype=torch.bool, device=miss.device)
+    bhead[1:] = b[1:] != b[:-1]
+    miss_i = miss.to(torch.int64)
+    incl = torch.cumsum(miss_i, 0)
+    base = (incl - miss_i)[_segment_start(bhead)]
+    return incl - 1 - base
+
+
 def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
-           valid: torch.Tensor, *, voxel_size: float, max_points_per_voxel: int):
+           valid: torch.Tensor, *, voxel_size: float, max_points_per_voxel: int,
+           key_bits=DEFAULT_KEY_BITS, tracer=None):
+    """`insert_split` with its two counts of dropped points summed: (new_map,
+    num_dropped), the JAX package's `insert`."""
+    new_map, span_dropped, capacity_dropped = insert_split(
+        vmap, points, covs_packed, valid, voxel_size=voxel_size,
+        max_points_per_voxel=max_points_per_voxel, key_bits=key_bits, tracer=tracer,
+    )
+    return new_map, span_dropped + capacity_dropped
+
+
+def insert_split(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
+                 valid: torch.Tensor, *, voxel_size: float, max_points_per_voxel: int,
+                 key_bits=DEFAULT_KEY_BITS, tracer=None):
     """Insert a batch of world-frame points + packed covariances (replaces
     the reference's per-point loop, `LocalMap.cpp:47-58`).
 
@@ -386,12 +423,22 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
        compacted to unique ascending entries.
     2. One d_view probe resolves every unique voxel against the delta tier:
        hits merge capped raw sums into their rows, misses append.
-    3. If the appends would overflow the delta, delta + the batch's new
-       voxels fold into MAIN (`device_if` on one device bool).
+    3. If the appends would overflow the delta, or a new voxel finds its
+       bucket of the delta's view full, delta + the batch's new voxels fold
+       into MAIN (`device_if` on one device bool).  The JAX package drops
+       such a voxel instead; the port folds, as the C++ map never drops
+       one: the delta's view holds two voxels a bucket of 8 slots when the
+       delta is full, so a map that grows every scan would drop a few
+       voxels a fold.
 
-    Returns (new_map, num_dropped).  Eagerly the result is new tensors (the
-    main tier shared with `vmap` when nothing folds); inside a graph capture
-    the result is `vmap`'s own buffers, written in place."""
+    Returns (new_map, span_dropped, capacity_dropped): valid points whose
+    voxel lies outside the key span, and the batch's voxels that found no
+    room in a full main tier, counted as the JAX package counts them in
+    its `dropped`.  Eagerly the result
+    is new tensors (the main tier shared with `vmap` when nothing folds);
+    inside a graph capture the result is `vmap`'s own buffers, written in
+    place.  With a tracer the fold branch is marked: a `fold` stage stamp
+    and one count of the device counter `map_folds`."""
     dtype = points.dtype
     dev = points.device
     n = points.shape[0]
@@ -399,7 +446,7 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
     cap = float(max_points_per_voxel)
 
     keys = vx.voxel_key(points, voxel_size)
-    packed, in_range = sm.pack_keys(keys, vmap.origin)
+    packed, in_range = sm.pack_keys(keys, vmap.origin, key_bits)
     ok = valid & in_range
     dropped_range = (valid & ~in_range).sum()
     skey = sm.skey_of(torch.where(ok, packed, INT32_MAX))
@@ -440,12 +487,19 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
 
     d_payload = _scatter_rows(vmap.d_payload, drow, new_sum, found)
 
+    # each miss claims the next free slot of its bucket in the delta's view;
+    # one that finds its bucket full counts as more rows than the delta has
     miss = u_live & ~found
-    n_miss = miss.sum()
+    slot = first_free + _bucket_rank(miss, b)
+    acc = miss & (slot < VIEW_ASSOC)
+    n_need = torch.add(miss.sum(), (miss & ~acc).sum(), alpha=d_cap + 1)
     d_fill = vmap.d_fill()
-    would_overflow = d_fill + n_miss > d_cap
+    would_overflow = d_fill + n_need > d_cap
+    none_dropped = torch.zeros((), dtype=torch.int64, device=dev)
 
     def fold():
+        stage(tracer, "fold")
+        device_count(tracer, "map_folds")
         ex_skey = torch.where(miss, u_skey, INT32_MAX)
         ex_pay = torch.where(miss[:, None], u_capped, 0.0)
         m_skey, m_payload, m_view, overflow = _fold_into_main(
@@ -456,19 +510,8 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
         )
         return (m_skey, m_payload, m_view, *_empty_delta(vmap), overflow)
 
-    def append():
-        # segmented rank of slot-claiming misses within their (contiguous)
-        # bucket runs
-        bhead = torch.ones(n, dtype=torch.bool, device=dev)
-        bhead[1:] = b[1:] != b[:-1]
-        miss_i = miss.to(torch.int64)
-        incl = torch.cumsum(miss_i, 0)
-        base = (incl - miss_i)[_segment_start(bhead)]
-        rank = incl - 1 - base  # rank among misses of the same bucket
-        slot = first_free + rank
-        acc = miss & (slot < VIEW_ASSOC)
+    def append():  # every miss has its slot here
         new_drow = d_fill + torch.cumsum(acc.to(torch.int64), 0) - 1
-        overflow = (miss & ~acc).sum()
 
         o_dskey = _scatter_rows(vmap.d_skey, new_drow, u_skey, acc)
         o_dpay = _scatter_rows(d_payload, new_drow, u_capped, acc)
@@ -482,10 +525,10 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
             found | acc,
         )
         # the main tier passes through: under capture it is not copied
-        return (vmap.skey, vmap.payload, vmap.view, o_dskey, o_dpay, o_dview, overflow)
+        return (vmap.skey, vmap.payload, vmap.view, o_dskey, o_dpay, o_dview, none_dropped)
 
     # under capture both branches write the map's own buffers
-    outs = (*vmap[1:], torch.zeros((), dtype=torch.int64, device=dev))
+    outs = (*vmap[1:], none_dropped)
     m_skey, m_payload, m_view, o_dskey, o_dpay, o_dview, overflow = device_if(
         would_overflow, fold, outs, otherwise=append
     )
@@ -494,7 +537,7 @@ def insert(vmap: VoxelMap, points: torch.Tensor, covs_packed: torch.Tensor,
         skey=m_skey, payload=m_payload, view=m_view,
         d_skey=o_dskey, d_payload=o_dpay, d_view=o_dview,
     )
-    return new_map, dropped_range + overflow
+    return new_map, dropped_range, overflow
 
 
 # ---------------------------------------------------------------------------
@@ -519,24 +562,29 @@ def compact(vmap: VoxelMap, *, max_points_per_voxel: int):
 
 
 def evict_beyond(vmap: VoxelMap, center: torch.Tensor, *, voxel_size: float,
-                 distance_threshold: float, max_points_per_voxel: int = 1000):
+                 distance_threshold: float, max_points_per_voxel: int = 1000,
+                 key_bits=DEFAULT_KEY_BITS):
     """Drop voxels farther than `distance_threshold` from `center` (ref
     `needsPointRemoval`, `LocalMap.cpp:149-154`), folding the delta in and
-    re-centring the packing origin on `center` — all in ONE fold.  Returns
-    (new_map, num_removed) with removed rows counted across both tiers."""
+    re-centring the packing origin on `center` (its voxel less half the
+    span on each axis) — all in ONE fold.  Returns (new_map, num_removed)
+    with removed rows counted across both tiers; a survivor outside the
+    new span is removed too."""
     dtype = vmap.payload.dtype
-    new_origin = vx.voxel_key(center, voxel_size) - 512
+    hx, hy, hz = sm.half_span(key_bits)
+    c = vx.voxel_key(center, voxel_size)
+    new_origin = c - hx if hx == hy == hz else torch.stack([c[0] - hx, c[1] - hy, c[2] - hz])
 
     def rekey(skey: torch.Tensor):
         live = skey != INT32_MAX
-        keys = sm.unpack_keys(sm.packed_of_skey(skey), vmap.origin)
+        keys = sm.unpack_keys(sm.packed_of_skey(skey), vmap.origin, key_bits)
         centers = (keys.to(dtype) + 0.5) * voxel_size
         dist = torch.linalg.norm(centers - center, dim=-1)
         survive = live & (dist <= distance_threshold)
         # INT32_MAX-1 is the skey_of sentinel-collision remap: exempt it from
         # the geometric test (its recovered coordinates are wrong)
         survive = survive | (skey == INT32_MAX - 1)
-        repacked, in_range = sm.pack_keys(keys, new_origin)
+        repacked, in_range = sm.pack_keys(keys, new_origin, key_bits)
         keep = survive & in_range
         n_removed = (live & ~keep).sum()
         return sm.skey_of(torch.where(keep, repacked, INT32_MAX)), n_removed

@@ -157,6 +157,7 @@ def align(
                 voxmap, pts,
                 voxel_size=config.map_voxel_size,
                 max_points_per_voxel=config.max_points_per_voxel,
+                key_bits=config.map_key_bits,
             )
 
     backend = resolve_backend(config)

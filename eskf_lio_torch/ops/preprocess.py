@@ -275,7 +275,7 @@ def downsample_and_covariances_ref(
 
     out_valid = t_live[:kcap]
     out_packed = t_packed[:kcap]
-    out_keys = sm.unpack_keys(out_packed, origin)
+    out_keys = sm.unpack_keys(out_packed, origin, sm.DEFAULT_KEY_BITS)
     out_centers = (out_keys.to(dtype) + 0.5) * vs
     out_points = torch.where(out_valid[:, None], out_centers + t_q[:kcap], 0.0)
 

@@ -2,7 +2,10 @@
 `eskf_lio_tpu/ops/sortmerge.py`).
 
 * `pack_keys` packs 3D voxel coords into ONE int32 relative to a local
-  origin (10 bits per axis); neighbour offsets become constant adds.
+  origin, `bits` = (x, y, z) bits per axis: the JAX package's 10 each by
+  default, bit for bit; another split (at most 31 bits in all) is the
+  port's own, for a map whose sensor travels farther between re-centrings
+  than +-512 voxels allow.  Neighbour offsets become constant adds.
 * `mix32` / `skey_of` give the bijective hash order that keys the voxel map.
   torch has no uint32 right shift on the CPU, so the uint32 arithmetic runs
   in int64 masked to 32 bits (products split so no int64 overflows) and is
@@ -21,30 +24,54 @@ INT32_MAX = 2147483647
 
 # 10 bits per axis => grid extent 1024 voxels per axis around the origin
 _BITS = 10
-_SPAN = 1 << _BITS
-_MASK = _SPAN - 1
 _U32 = 0xFFFFFFFF
 _SIGN = 0x80000000
+DEFAULT_KEY_BITS = (_BITS, _BITS, _BITS)
+
+
+def check_key_bits(bits) -> tuple[int, int, int]:
+    """`bits` as a tuple of three positive ints of at most 31 in all."""
+    bits = tuple(int(b) for b in bits)
+    if len(bits) != 3 or min(bits) < 1 or sum(bits) > 31:
+        raise ValueError(f"a key split is three positive bit counts of at most 31 in all, got {bits}")
+    return bits
+
+
+def half_span(bits=DEFAULT_KEY_BITS) -> tuple[int, int, int]:
+    """Voxels from an origin to the centre of its span, per axis: the origin
+    of a span centred on voxel c is c - half_span(bits)."""
+    return tuple(1 << (b - 1) for b in bits)
 
 
 def pack_keys(
-    keys: torch.Tensor, origin: torch.Tensor
+    keys: torch.Tensor, origin: torch.Tensor, bits=DEFAULT_KEY_BITS
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """[..., 3] int32 voxel coords -> (packed int32 relative to `origin`,
-    in_range).  Out-of-span coords are flagged and packed as INT32_MAX."""
+    in_range).  Out-of-span coords are flagged and packed as INT32_MAX.
+    With 31 bits in all the all-ones key would be INT32_MAX itself: it is
+    out of span.  `bits` are Python ints: the default split runs the JAX
+    package's ops, one op list a split."""
+    bx, by, bz = bits
     rel = keys - origin
-    in_range = torch.all((rel >= 0) & (rel < _SPAN), dim=-1)
-    packed = (rel[..., 0] << (2 * _BITS)) | (rel[..., 1] << _BITS) | rel[..., 2]
+    if bx == by == bz:
+        in_range = torch.all((rel >= 0) & (rel < (1 << bx)), dim=-1)
+    else:
+        in_range = ((rel[..., 0] >> bx) | (rel[..., 1] >> by) | (rel[..., 2] >> bz)) == 0
+    packed = (rel[..., 0] << (by + bz)) | (rel[..., 1] << bz) | rel[..., 2]
+    if bx + by + bz == 31:
+        in_range = in_range & (packed != INT32_MAX)
     return torch.where(in_range, packed, INT32_MAX), in_range
 
 
-def unpack_keys(packed: torch.Tensor, origin: torch.Tensor) -> torch.Tensor:
-    """Inverse of `pack_keys`; sentinel rows produce junk (callers mask)."""
+def unpack_keys(packed: torch.Tensor, origin: torch.Tensor, bits) -> torch.Tensor:
+    """Inverse of `pack_keys` under the split the keys were packed with;
+    sentinel rows produce junk (callers mask)."""
+    bx, by, bz = bits
     rel = torch.stack(
         [
-            (packed >> (2 * _BITS)) & _MASK,
-            (packed >> _BITS) & _MASK,
-            packed & _MASK,
+            (packed >> (by + bz)) & ((1 << bx) - 1),
+            (packed >> bz) & ((1 << by) - 1),
+            packed & ((1 << bz) - 1),
         ],
         dim=-1,
     )

@@ -243,6 +243,7 @@ def make_sharded_scan_step(config: Config, mesh: ShardMesh, tracer=None):
     map_kw = dict(
         voxel_size=config.map_voxel_size,
         max_points_per_voxel=config.max_points_per_voxel,
+        key_bits=config.map_key_bits,
     )
 
     def scan_step(
@@ -318,7 +319,7 @@ def make_sharded_scan_step(config: Config, mesh: ShardMesh, tracer=None):
             # rotate only the sliced covariances into world frame: R Σ Rᵀ
             covs_w = T.R @ vm.unpack_cov(i_covp) @ T.R.T
             block, lost = vm.insert(
-                block, i_pts_w, vm.pack_cov(covs_w), i_valid & should_insert, **map_kw
+                block, i_pts_w, vm.pack_cov(covs_w), i_valid & should_insert, **map_kw,
             )
             new_blocks.append(block)
             dropped = dropped + lost
@@ -334,6 +335,7 @@ def make_sharded_scan_step(config: Config, mesh: ShardMesh, tracer=None):
                     voxel_size=config.map_voxel_size,
                     distance_threshold=config.remove_distance_threshold,
                     max_points_per_voxel=config.max_points_per_voxel,
+                    key_bits=config.map_key_bits,
                 )
                 removed = removed + gone
 
@@ -382,6 +384,7 @@ def make_sharded_init_step(config: Config, mesh: ShardMesh):
                 block, i_pts, i_covp, i_valid,
                 voxel_size=config.map_voxel_size,
                 max_points_per_voxel=config.max_points_per_voxel,
+                key_bits=config.map_key_bits,
             )
             new_blocks.append(block)
             lost = lost + dropped + overflow
@@ -438,7 +441,8 @@ class GraphedShardedScanStep(odo.GraphedScanStep):
         return make_sharded_scan_step(config, self.mesh, self.tracer)
 
     def _make_map(self, config: Config, dev) -> None:
-        whole = vm.VoxelMap.create(config.hash_capacity, config.map_delta_capacity, device=dev)
+        whole = vm.VoxelMap.create(config.hash_capacity, config.map_delta_capacity, device=dev,
+                                   key_bits=config.map_key_bits)
         self.blocks = ShardedVoxelMap.from_whole(whole, self.mesh).blocks
 
     def _run(self, do_evict: bool):

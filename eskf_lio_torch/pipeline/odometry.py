@@ -50,11 +50,14 @@ from eskf_lio_torch.utils.graphs import StepGraph, assign
 from eskf_lio_torch.utils.profiling import stage
 
 # the step's diagnostics, in the order of a captured step's diagnostic
-# vector; the flags among them are read back as bools
+# vector; the flags among them are read back as bools.  The JAX package's,
+# then the port's own: `dropped_points` split into the points whose voxel
+# lies outside the map's key span and those that found no room in the map
 DIAG_KEYS = (
     "icp_iterations", "icp_converged", "num_correspondences", "inserted",
     "dropped_points", "removed_voxels", "num_scan_points",
     "align_slice_overflow", "pose_finite",
+    "span_dropped_points", "capacity_dropped_points",
 )
 DIAG_FLAGS = ("icp_converged", "inserted", "pose_finite")
 
@@ -117,14 +120,17 @@ def make_step_core(config: Config, device="cuda", tracer=None) -> Callable:
         should_insert = (cosine < config.map_update_cosine_threshold) | (
             torch.sum(moved_t * moved_t) > config.map_update_translation_sq_threshold
         )
-        voxmap, dropped = vm.insert(
+        voxmap, span_dropped, capacity_dropped = vm.insert_split(
             voxmap,
             T.apply(processed.points),
             vm.pack_cov(T.R @ processed.covs @ T.R.T),
             processed.valid & should_insert,
             voxel_size=config.map_voxel_size,
             max_points_per_voxel=config.max_points_per_voxel,
+            key_bits=config.map_key_bits,
+            tracer=tracer,
         )
+        dropped = span_dropped + capacity_dropped
 
         # 7. periodic distant-voxel eviction (host-known schedule)
         removed = torch.zeros((), dtype=torch.int64, device=dev)
@@ -135,6 +141,7 @@ def make_step_core(config: Config, device="cuda", tracer=None) -> Callable:
                 voxel_size=config.map_voxel_size,
                 distance_threshold=config.remove_distance_threshold,
                 max_points_per_voxel=config.max_points_per_voxel,
+                key_bits=config.map_key_bits,
             )
 
         n_points = processed.valid.sum()
@@ -149,6 +156,8 @@ def make_step_core(config: Config, device="cuda", tracer=None) -> Callable:
             "align_slice_overflow": torch.clamp(n_points - a_cap, min=0),
             # a non-finite pose means the filter diverged
             "pose_finite": torch.isfinite(T.t).all() & torch.isfinite(T.R).all(),
+            "span_dropped_points": span_dropped,
+            "capacity_dropped_points": capacity_dropped,
         }
         stage(tracer, "end")
         return (corrected, voxmap, T.R, T.t), diag
@@ -233,7 +242,8 @@ class GraphedScanStep:
     def _make_map(self, config: Config, dev) -> None:
         """The static map buffers."""
         self.voxmap = vm.VoxelMap.create(
-            config.hash_capacity, config.map_delta_capacity, device=dev
+            config.hash_capacity, config.map_delta_capacity, device=dev,
+            key_bits=config.map_key_bits,
         )
 
     def _run(self, do_evict: bool):
@@ -311,6 +321,7 @@ def make_init_step(config: Config, device="cuda") -> Callable:
             processed.valid,
             voxel_size=config.map_voxel_size,
             max_points_per_voxel=config.max_points_per_voxel,
+            key_bits=config.map_key_bits,
         )
 
     return init_step
@@ -447,7 +458,8 @@ class Odometry:
             init_state if init_state is not None else eskf.init_state(config, self.device)
         )
         self.voxmap = vm.VoxelMap.create(
-            config.hash_capacity, config.map_delta_capacity, device=self.device
+            config.hash_capacity, config.map_delta_capacity, device=self.device,
+            key_bits=config.map_key_bits,
         )
         self.prev_R = torch.eye(3, device=self.device)
         self.prev_t = torch.zeros(3, device=self.device)

@@ -259,7 +259,8 @@ def run_replay(
 
     state = init_state if init_state is not None else eskf.init_state(config, dev)
     voxmap = vm.VoxelMap.create(
-        config.hash_capacity, config.map_delta_capacity, device=dev
+        config.hash_capacity, config.map_delta_capacity, device=dev,
+        key_bits=config.map_key_bits,
     )
     voxmap, _ = init_step(voxmap, init_scan)
 

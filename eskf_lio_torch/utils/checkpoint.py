@@ -10,7 +10,11 @@ The on-disk layout is the JAX package's, so a checkpoint written by either
 package loads into the other: `arrays.npz` holds `state_0..6` (p, v, q, ba,
 bg, g, P), `voxmap_0..6` (origin, skey, payload, view, d_skey, d_payload,
 d_view — the NamedTuple field order of both packages), `prev_R`, `prev_t`;
-`meta.pkl` holds the flags, clocks and trajectory lists.
+`meta.pkl` holds the flags, clocks and trajectory lists, and the map's
+key split (`Config.map_key_bits`, the port's own): a map's packed keys mean
+nothing under another split, so loading one saved under another split
+raises.  A checkpoint without it (the JAX package's) holds the default
+split, (10, 10, 10).
 
 A sharded run (`parallel.sharded_map.ShardedOdometry`) keeps the same
 layout: the `voxmap_i` leaves are the global arrays, every field but
@@ -28,7 +32,7 @@ from typing import Any
 
 import numpy as np
 
-from eskf_lio_torch.map.voxel_map import VoxelMap
+from eskf_lio_torch.map.voxel_map import DEFAULT_KEY_BITS, VoxelMap
 from eskf_lio_torch.parallel import distributed as dist
 from eskf_lio_torch.parallel.sharded_map import ShardedVoxelMap
 from eskf_lio_torch.types import FilterState
@@ -67,6 +71,7 @@ def save_checkpoint(path: str, odo) -> None:
         "trajectory_t": odo.trajectory_t,
         "trajectory_p": odo.trajectory_p,
         "trajectory_R": odo.trajectory_R,
+        "map_key_bits": tuple(odo.config.map_key_bits),
     }
     np.savez_compressed(os.path.join(path, "arrays.npz"), **flat)
     with open(os.path.join(path, "meta.pkl"), "wb") as f:
@@ -89,6 +94,12 @@ def load_checkpoint(path: str, odo) -> Any:
         prev_R, prev_t = z["prev_R"], z["prev_t"]
     with open(os.path.join(path, "meta.pkl"), "rb") as f:
         meta = pickle.load(f)
+    saved = tuple(meta.get("map_key_bits", DEFAULT_KEY_BITS))
+    if saved != tuple(odo.config.map_key_bits):
+        raise ValueError(
+            f"the checkpoint's map was packed with the key split {saved}; this run's "
+            f"Config.map_key_bits is {tuple(odo.config.map_key_bits)}: load it with that split"
+        )
 
     dev = odo.device
     odo.state = filter_state_from_numpy(state, dev)

@@ -292,7 +292,7 @@ class StepGraph:
     allocates lives in the graph's pool and is dead when it returns.
 
     `capture_s`, `nodes` (top level and every conditional body),
-    `stamp_nodes` (of those, the tracer's stamps) and `bodies` (each
+    `stamp_nodes` (of those, the tracer's: stamps and device counts) and `bodies` (each
     conditional body in capture order: its kind, depth, nodes and nodes by
     type) describe the capture; graphs that never run at once may share a
     `pool`.  With a tracer (`utils.profiling.Tracer`), each capture is a

@@ -26,7 +26,11 @@ boundary of the hot path costs one `is None` test.  With it:
   it advances itself, so that a replay reads nothing back; the ring is
   drained after the window and mapped onto the host clock by stamps
   launched at the anchors.  Eagerly (on the CPU) the same call records host
-  spans.
+  spans;
+* device counters: `device_count(tracer, name)` inside a captured step
+  captures one add into a small counter vector on the device (the map's
+  `map_folds`, in `insert`'s fold branch), read once after the window
+  (`device_counters`); eagerly it counts on the host.
 
 `export(path)` writes everything as a Chrome-trace JSON file that Perfetto
 and chrome://tracing open; `summary()` gives per-name means.
@@ -77,6 +81,14 @@ def annotate(name: str):
         yield
 
 
+def device_count(tracer: Tracer | None, name: str) -> None:
+    """One count of `name` inside the step: while a CUDA stream captures a
+    step built with a tracer, one add node on the device counter; run
+    eagerly, a host count; without a tracer, nothing."""
+    if tracer is not None:
+        tracer.device_count(name)
+
+
 def stage(tracer: Tracer | None, name: str, tick: bool = False) -> None:
     """A stage boundary inside the step: `name` starts where the previous
     stage ends ("end" closes the last).  While a CUDA stream captures a step
@@ -95,6 +107,7 @@ class Tracer:
 
     SPANS = 1 << 16
     STAMPS = 1 << 20  # a power of two: the kernel wraps its cursor with a mask
+    DEVICE_COUNTERS = 16
 
     def __init__(self):
         self.t0 = now()
@@ -126,6 +139,9 @@ class Tracer:
         self._tags: dict[str, int] = {}
         self._ticks: set[str] = set()
         self.stamps_captured = 0
+        # device counters: one int64 a name, on the stamp ring's device
+        self.device_counts: torch.Tensor | None = None
+        self._counter_ids: dict[str, int] = {}
 
     # -- host spans ---------------------------------------------------------
 
@@ -193,6 +209,26 @@ class Tracer:
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] = self.counters.get(name, 0) + n
+
+    def device_count(self, name: str) -> None:
+        """`device_count(tracer, name)`: an add node under capture, else a
+        host count (see the function)."""
+        if self.ring is not None and torch.cuda.is_current_stream_capturing():
+            i = self._counter_ids.setdefault(name, len(self._counter_ids))
+            if i >= self.DEVICE_COUNTERS:
+                raise ValueError(f"more than {self.DEVICE_COUNTERS} device counters")
+            self.device_counts[i:i + 1].add_(1)
+            self.stamps_captured += 1  # a node of the tracer's, as a stamp is
+            return
+        self.count(name)
+
+    def device_counters(self) -> dict[str, int]:
+        """Each device counter's count, in one read of the device (a count
+        made eagerly is in `counters`)."""
+        if self.device_counts is None or not self._counter_ids:
+            return {}
+        counts = self.device_counts.cpu().tolist()
+        return {name: int(counts[i]) for name, i in self._counter_ids.items()}
 
     def stage(self, name: str, tick: bool = False) -> None:
         """`stage(tracer, name, tick)`: a stamp node under capture, else a
@@ -348,6 +384,7 @@ class Tracer:
         GRAPH_COND.lib()
         self.ring = torch.zeros((self.STAMPS, 2), dtype=torch.int64, device=device)
         self.cursor = torch.zeros(1, dtype=torch.int64, device=device)
+        self.device_counts = torch.zeros(self.DEVICE_COUNTERS, dtype=torch.int64, device=device)
         # the stamp kernel's first launch loads it: not inside an anchor's wait
         self._stamp(_WARM_TAG)
 
@@ -430,6 +467,8 @@ class Tracer:
         out = {"spans": {k: {"count": len(v), "mean_ms": float(np.mean(v)),
                              "total_ms": float(np.sum(v))} for k, v in spans.items()},
                "counters": dict(self.counters)}
+        if self._counter_ids:
+            out["device_counters"] = self.device_counters()
         dev: dict[str, list[float]] = {}
         for nm, _, a, b in self.device_spans():
             dev.setdefault(nm, []).append((b - a) / 1e6)

@@ -792,8 +792,9 @@ def test_bench_light_series_on_the_card(dev, capsys, monkeypatch):
 # ---------------------------------------------------------------------------
 
 # the stage marks of `make_step_core` and the GN tick, as captured: the tick
-# once at the top level (the first pass) and once in the WHILE node's body
-STAMPS_CAPTURED = {False: 8, True: 9}
+# once at the top level (the first pass) and once in the WHILE node's body;
+# and in the insert's fold branch its `fold` stamp and its `map_folds` count
+STAMPS_CAPTURED = {False: 10, True: 11}
 
 
 @pytest.fixture(scope="module")
@@ -854,9 +855,10 @@ def test_a_stamped_step_gives_the_bits_of_an_unstamped_one(stamped_replays):
 
 
 def test_the_stamps_add_their_nodes_and_nothing_else(stamped_replays):
-    """Each captured graph with stamps holds exactly its stamp marks more
-    nodes than the same graph without (one of them in the WHILE body), and
-    the untraced capture launched no stamp."""
+    """Each captured graph with stamps holds exactly its stamp marks (and
+    the fold's count) more nodes than the same graph without (one of them in
+    the WHILE body, two in the fold's IF body), and the untraced capture
+    launched no stamp."""
     _, _, (_, plain_step), (_, stamped_step), tracer, untraced_stamps = stamped_replays
     assert untraced_stamps == 0
     for evict, marks in STAMPS_CAPTURED.items():
@@ -868,6 +870,8 @@ def test_the_stamps_add_their_nodes_and_nothing_else(stamped_replays):
         assert tracer.counters[f"stamp_nodes.{name}"] == marks
         loops = [(p, s) for p, s in zip(plain.bodies, stamped.bodies) if p["kind"] == "while"]
         assert len(loops) == 1 and loops[0][1]["nodes"] == loops[0][0]["nodes"] + 1
+        ifs = [s["nodes"] - p["nodes"] for p, s in zip(plain.bodies, stamped.bodies) if p["kind"] == "if"]
+        assert sorted(ifs)[-1] == 2 and sum(ifs) == 2  # the fold branch: a stamp and a count
     assert tracer.summary()["spans"]["graph_capture"]["count"] == 2
 
 
@@ -882,7 +886,10 @@ def test_stamps_rise_within_a_row_with_one_gn_stamp_a_pass(stamped_replays):
         assert names.count("gn") == int(diags["icp_iterations"][b])
         stages = [n for n in names if n != "gn"]
         expect = ["predict", "preprocess", "align", "pose_update", "map_insert"]
-        assert stages == expect + (["evict"] if bool(evicts[b]) else []) + ["end"]
+        fold = ["fold"] if "fold" in stages else []  # the insert's fold branch ran
+        assert stages == expect + fold + (["evict"] if bool(evicts[b]) else []) + ["end"]
+    folds = sum("fold" in [n for n, _ in row] for row in rows)
+    assert tracer.device_counters().get("map_folds", 0) == folds
     # the rows' stamps lie inside the rows' device spans, both on the host clock
     spans = tracer.device_spans("row")
     assert len(spans) == n_rows

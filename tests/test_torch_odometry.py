@@ -108,7 +108,11 @@ def test_run_matches_jax(seq2s):
     assert [bool(d["icp_converged"]) for d in t_odo.diags] == [
         bool(d["icp_converged"]) for d in j_odo.diags
     ]
-    assert set(t_odo.diags[0]) == set(j_odo.diags[0])
+    # the port's own diagnostics split the JAX package's dropped points
+    own = {"span_dropped_points", "capacity_dropped_points"}
+    assert set(t_odo.diags[0]) == set(j_odo.diags[0]) | own
+    assert all(int(d["dropped_points"]) == int(d["span_dropped_points"])
+               + int(d["capacity_dropped_points"]) for d in t_odo.diags)
     # poses that differ by f32 rounding move a few border points across voxels
     assert not t_sum["diverged"]
     assert abs(t_sum["map_voxels"] - j_sum["map_voxels"]) <= 0.01 * j_sum["map_voxels"]

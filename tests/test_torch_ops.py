@@ -135,7 +135,8 @@ def test_pack_unpack_bit_exact():
     out_j, out_t = both(j_sm.pack_keys, t_sm.pack_keys, keys, origin)
     for a, b in zip(out_j, out_t):
         np.testing.assert_array_equal(b, a)
-    out_j, out_t = both(j_sm.unpack_keys, t_sm.unpack_keys, out_j[0], origin)
+    out_j, out_t = both(j_sm.unpack_keys,
+                        lambda p, o: t_sm.unpack_keys(p, o, t_sm.DEFAULT_KEY_BITS), out_j[0], origin)
     np.testing.assert_array_equal(out_t[0], out_j[0])
 
 

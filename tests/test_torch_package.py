@@ -72,19 +72,32 @@ def test_port_has_both_kernel_sources():
     assert names == {"gn_normal_eq.cu", "segscan.cu", "graph_cond.cu", "preprocess.cu"}
 
 
+# the port's own fields, after the JAX package's, with the defaults that
+# reproduce the JAX package's behaviour
+PORT_ONLY = {"Config": [("map_key_bits", "tuple[int, int, int]", (10, 10, 10))], "ImuConfig": []}
+
+
+def _shared(obj) -> dict:
+    """A config's fields as a dict, less the port's own."""
+    own = {name for name, _, _ in PORT_ONLY[type(obj).__name__]}
+    return {k: v for k, v in dataclasses.asdict(obj).items() if k not in own}
+
+
 @pytest.mark.parametrize("cls", ["Config", "ImuConfig"])
 def test_config_copy_has_same_fields_and_defaults(cls):
     t_cls, j_cls = getattr(t_config, cls), getattr(j_config, cls)
     t_fields = [(f.name, f.type) for f in dataclasses.fields(t_cls)]
     j_fields = [(f.name, f.type) for f in dataclasses.fields(j_cls)]
-    assert t_fields == j_fields
-    assert dataclasses.asdict(t_cls()) == dataclasses.asdict(j_cls())
+    assert t_fields == j_fields + [(name, typ) for name, typ, _ in PORT_ONLY[cls]]
+    assert _shared(t_cls()) == dataclasses.asdict(j_cls())
+    assert all(getattr(t_cls(), name) == default for name, _, default in PORT_ONLY[cls])
 
 
 def test_config_copy_loads_yaml_the_same():
     path = ROOT / "config" / "hilti.yaml"
     t, j = t_config.load_config(str(path)), j_config.load_config(str(path))
-    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert _shared(t) == dataclasses.asdict(j)
+    assert t.map_key_bits == (10, 10, 10)
     assert t.align_capacity == j.align_capacity and t.hash_capacity == j.hash_capacity
     for key, val in t.imu.noise_sigmas().items():
         assert (val == j.imu.noise_sigmas()[key]).all()

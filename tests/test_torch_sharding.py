@@ -318,7 +318,7 @@ def test_sharded_map_is_partitioned(seq):
     odo.run(seq, max_scans=5)
     n_dev = 8
     sub = TCFG.hash_capacity // n_dev
-    keys = odo.voxmap.keys.numpy().reshape(n_dev, sub, 3)
+    keys = odo.voxmap.keys(TCFG.map_key_bits).numpy().reshape(n_dev, sub, 3)
     occ = odo.voxmap.live().numpy().reshape(n_dev, sub)
     total = 0
     for d in range(n_dev):

@@ -148,12 +148,13 @@ def test_eager_stage_spans_come_in_order_inside_process_scan(seq, shards):
         for (a0, a1, *_), (b0, b1, *_) in zip(children, children[1:]):
             assert a1 == b0 <= b1  # in order, without gaps
         (l0, l1, _, li) = spans["step_launch"][0]
-        names = [n for n in (*STAGES, "evict") if n in spans]
+        names = [n for n in (*STAGES, "fold", "evict") if n in spans]
         assert names[:5] == list(STAGES)
         stages = [spans[n][0] for n in names]
         assert all(s[2] == li and l0 <= s[0] <= s[1] <= l1 for s in stages)
         for (a0, a1, *_), (b0, b1, *_) in zip(stages, stages[1:]):
-            assert a1 == b0  # predict < preprocess < align < pose_update < map_insert [< evict]
+            # predict < preprocess < align < pose_update < map_insert [< fold] [< evict]
+            assert a1 == b0
         # one GN tick a pass, inside `align`
         diag = odo.diags[k - 1]
         assert len(spans["gn"]) == int(diag["icp_iterations"])
