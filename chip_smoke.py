@@ -39,9 +39,22 @@
    once a call, its device time, its bytes' bound and its share, the sorts'
    and kernel B's time, the whole call's device and call time against the
    plain version's.
+   `gn_pass_shapes`: the GN pass's lookup and increment kernels
+   (`csrc/gn_pass.cu`) at mid360's (12,288 align rows, key split (10, 10,
+   10)) and urban's (24,576, (11, 11, 9)) shapes over a 2^19-row map holding
+   a room in both tiers: the lookup against `voxel_map.lookup` and the
+   increment against its plain version, bit for bit, one launch a call;
+   each timed in a captured graph beside an empty kernel there, with its
+   bytes' bound, its wrapper call and its plain version; the lookup also
+   with L2 emptied before each call, the time its bound (the distinct
+   sectors it reads, at the HBM rate) is held against.  Every path below
+   counts their launches (one `gn_pass.KERNEL`): twice a GN pass, kernel A
+   once, on every unsharded path; none on the sharded ones, which keep
+   their own lookup and increment.
    `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
    process of its own, kernel B's values, kernel A's rows and mask and
-   every input of the preprocessor's kernels in host memory registered for
+   every input of the preprocessor's and the GN pass's kernels in host
+   memory registered for
    the card up to their last byte, where a load past the end is an illegal
    address (kernel B's was, at N a multiple of the tile rows, before the
    halo fix).
@@ -631,8 +644,9 @@ def kernel_bounds_phase() -> dict:
     kernel B's values at N a multiple of the tile rows, head rows against
     the plain version; kernel A's four row arrays and mask at N = 16,384,
     12,288, 8,192 and two ragged N, its sums against the plain version;
-    every input of the preprocessor's kernels, outputs bit-equal to a call
-    on device-resident inputs."""
+    every input of the preprocessor's kernels and of the GN pass's lookup
+    and increment kernels, outputs bit-equal to a call on device-resident
+    inputs."""
     proc = subprocess.run([sys.executable, "-m", "eskf_lio_torch.utils.kernel_bounds"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300)
     line = [l for l in proc.stdout.splitlines() if l.startswith("kernel_bounds ")]
@@ -649,8 +663,10 @@ def kernel_bounds_phase() -> dict:
         check(s["rel_err"] <= GN_TOL, f"kernel_bounds A N={s['n']}: rel_err {s['rel_err']}")
     for s in res["pre_shapes"]:
         check(s["equal"], f"kernel_bounds P N={s['n']} K={s['k']} {s['path']}: outputs differ")
+    for s in res["gn_pass_shapes"]:
+        check(s["equal"], f"kernel_bounds G N={s['n']} {s['key_bits']}: outputs differ")
     out = {"segscan": res["shapes"], "gn_normal_eq": res["gn_shapes"],
-           "preprocess": res["pre_shapes"]}
+           "preprocess": res["pre_shapes"], "gn_pass": res["gn_pass_shapes"]}
     print("kernel_bounds " + json.dumps(out))
     return out
 
@@ -797,6 +813,10 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
         max_align_slice_overflow=int(np.max(diags["align_slice_overflow"])),
         dropped_points=int(np.sum(diags["dropped_points"])),
         graphs=graph_info(step),
+        # the GN loop's WHILE body of the update graph, by node type
+        gn_while_body=next({"nodes": b["nodes"], "by_type": b["by_type"]}
+                           for b in step.scan_step.graphs[False].bodies
+                           if b["kind"] == "while" and b["depth"] == 0),
         # the warm half's rows; the first half's hold the capture's own
         # synchronisations (before and after it), once a run
         device_syncs_in_rows_per_scan=sum(sync_sites(caught["warm"], warm_updates).values()),
@@ -808,8 +828,9 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
           "non-finite pose in the replay")
     check(conv > MIN_CONVERGENCE, f"convergence rate {conv:.3f} <= {MIN_CONVERGENCE}")
     check(ate_cm <= MAX_ATE_CM, f"ATE {ate_cm:.2f} cm > {MAX_ATE_CM} cm")
-    check(launches["gn_normal_eq"] == int(np.sum(iters)),
-          f"kernel A launches {launches['gn_normal_eq']} != GN iterations {int(np.sum(iters))}")
+    for name, per in GN_PASS_LAUNCHES.items():
+        check(launches[name] == per * int(np.sum(iters)),
+              f"{name} launches {launches[name]} != {per} x GN iterations {int(np.sum(iters))}")
     # the downsampler and `insert`, on every update scan and on the init scan
     check(launches["segscan"] == 2 * n_upd + 2,
           f"kernel B launches {launches['segscan']} != 2 x update scans + 2 = {2 * n_upd + 2}")
@@ -1200,6 +1221,10 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(
     per_iter, per_scan = (n_shards or 1), 1 + (n_shards or 1)
     check(launches["gn_normal_eq"] == per_iter * iters,
           f"kernel A launches {launches['gn_normal_eq']} != {per_iter} x GN iterations {iters}")
+    # the lookup and increment kernels once each a GN pass; the sharded path
+    # keeps its own lookup and increment (`lookup_fn`, `reduce_fn`): none there
+    want = 0 if n_shards else GN_PASS_LAUNCHES["gn_pass"] * iters
+    check(launches["gn_pass"] == want, f"gn_pass launches {launches['gn_pass']} != {want}")
     # the downsampler and `insert`, on every update scan and on the init scan
     check(launches["segscan"] == per_scan * (n_upd + 1),
           f"kernel B launches {launches['segscan']} != {per_scan} x {n_upd + 1} scans")
@@ -1399,6 +1424,8 @@ def cli_phase(kernels) -> dict:
         check(poses == 19, f"{poses} poses for the 19 scans of 2 s")
         check(res["checkpoint_files"] == ["arrays.npz", "meta.pkl"], "no checkpoint written")
         check(res["launches"]["segscan"] == 2 * poses and res["launches"]["gn_normal_eq"] > 0
+              and all(res["launches"][k] == per * res["launches"]["gn_normal_eq"]
+                      for k, per in GN_PASS_LAUNCHES.items())
               and res["launches"]["preprocess"] == PRE_LAUNCHES * poses,
               f"the CLI's run did not go through the kernels: {res['launches']}")
         return res["launches"]
@@ -1697,6 +1724,198 @@ def preprocess_kernel_phase(dev, config, scan_points) -> dict:
     res["init_heavy"] = dict(n=n, k=config.max_scan_points,
                              points=int(got.valid.sum()), cov_max_abs_err=cov_err)
     print("preprocess_shapes " + json.dumps(res))
+    return res
+
+
+# launches a GN pass on every unsharded path: kernel A, and the GN pass's
+# lookup and increment kernels around it (one `gn_pass.KERNEL`, two launches)
+GN_PASS_LAUNCHES = {"gn_normal_eq": 1, "gn_pass": 2}
+# rows of the kernels line whose launches are counted with another kernel's
+COUNTED_AS = {"gn_lookup": "gn_pass", "gn_increment": "gn_pass"}
+# the replay configurations' align rows and map key splits
+GN_PASS_SHAPES = {"mid360": (12288, (10, 10, 10)), "urban": (24576, (11, 11, 9))}
+
+
+def gn_pass_map(dev, n: int, bits, seed: int):
+    """A 2^19-row map (its main view 128 MiB, as the replay cells') holding
+    a room's surfaces in both tiers, and `n` query rows on them with a
+    0.9-valid mask: the lookup's inputs at a replay cell's shape."""
+    import torch
+
+    from eskf_lio_torch.map import voxel_map as vm
+    from eskf_lio_torch.utils import kernel_bounds
+
+    m = vm.VoxelMap.create(1 << 19, device=dev, key_bits=bits)
+    scan, _, _ = kernel_bounds.room_scan(4 * n, seed, dev)
+    pts = scan.points[scan.valid]
+    half = pts.shape[0] // 2
+    covs = torch.tensor([0.01, 0.0, 0.0, 0.01, 0.0, 0.01], device=dev).expand(pts.shape[0], 6)
+    kw = dict(voxel_size=0.3, max_points_per_voxel=1000, key_bits=bits)
+    ones = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    m, _ = vm.insert(m, pts, covs.contiguous(), ones, **kw)
+    m, _ = vm.compact(m, max_points_per_voxel=1000)
+    m, _ = vm.insert(m, pts[:half] + 0.05, covs[:half].contiguous(), ones[:half], **kw)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    idx = torch.randint(0, pts.shape[0], (n,), device=dev, generator=g)
+    q = (pts[idx] + (torch.rand((n, 3), device=dev, generator=g) - 0.5) * 0.04).contiguous()
+    valid = torch.rand(n, device=dev, generator=g) < 0.9
+    return m, q, valid
+
+
+def graph_launch_ms(fn, launches: int = 20, replays: int = 20, flush=None) -> float:
+    """Device ms a call of `fn` when `launches` calls are captured into one
+    CUDA graph and the graph is replayed `replays` times between two CUDA
+    events, as the main path's graph runs them (each call's node launch
+    included).  torch.profiler drops some records of these kernels (46 of
+    50 in every trace of one card run), so they are timed this way.  With
+    `flush`, a call of it is captured before each call of `fn` and timed
+    with it (`cold_graph_launch_ms` takes it out again)."""
+    import torch
+
+    if flush is not None:
+        body = fn
+
+        def fn():
+            flush()
+            body()
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()  # warm: no first use inside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / (replays * launches))
+    return best
+
+
+def cold_graph_launch_ms(fn, dev) -> float:
+    """`graph_launch_ms` of `fn` with the L2 cache emptied of its data
+    before each call: a read of 128 MiB (2.5 times the H100's 50 MB L2)
+    captured before each call, its time alone taken out.  So each call
+    reads its inputs from HBM, as a row's first GN pass does."""
+    import torch
+
+    junk = torch.ones(1 << 25, device=dev)  # 128 MiB
+    flush = lambda: junk.sum()  # noqa: E731
+    return (graph_launch_ms(fn, flush=flush) - graph_launch_ms(lambda: None, flush=flush))
+
+
+def view_sectors(view, skey) -> int:
+    """The 32-byte sectors of `view` that the lookup kernel reads for these
+    skeys, each counted once: a probed bucket's eight skey words (one
+    sector each) and a hit slot's second sector (payload words 8-11; words
+    2-7 share the skey word's sector)."""
+    import torch
+
+    from eskf_lio_torch.map import voxel_map as vm
+
+    slots, b = vm._probe_rows(view, skey)
+    eq, lane, _ = vm._hit_slot(slots, skey)
+    found = eq.any(dim=1) & (skey != vm.INT32_MAX)
+    hit_slots = (b.to(torch.int64) * 8 + lane)[found]
+    return 8 * torch.unique(b).numel() + torch.unique(hit_slots).numel()
+
+
+def gn_pass_shape(dev, n: int, bits, seed: int) -> dict:
+    """The lookup kernel against `voxel_map.lookup` (bit for bit on its own
+    pts_w) and the increment kernel against its plain version, one launch a
+    call each, timed beside their bound and their plain versions."""
+    import torch
+
+    from eskf_lio_torch.map import voxel_map as vm
+    from eskf_lio_torch.ops import gn_normal_eq, gn_pass, lie
+
+    m, q, valid = gn_pass_map(dev, n, bits, seed)
+    R = lie.so3_exp(torch.tensor([0.01, -0.02, 0.015], device=dev))
+    t = torch.tensor([0.05, -0.03, 0.02], device=dev)
+    kw = dict(voxel_size=0.3, max_points_per_voxel=1000, key_bits=bits)
+    before = gn_pass.KERNEL.launch_count()
+    pts_w, mu, cov, mask = gn_pass.lookup(q, valid, R, t, m, **kw)
+    check(gn_pass.KERNEL.launch_count() - before == 1, "the lookup is not one launch a call")
+    want = vm.lookup(m, pts_w, **kw)
+    same = (torch.equal(pts_w, lie.transform_points(R, t, q))
+            and torch.equal(mu.view(torch.int32), want[0].contiguous().view(torch.int32))
+            and torch.equal(cov.view(torch.int32), want[1].contiguous().view(torch.int32))
+            and torch.equal(mask, valid & want[2]))
+    check(same, f"the lookup kernel disagrees with voxel_map.lookup at N={n} {bits}")
+    hits = int(want[2].sum())
+    # the bytes a call must bring from HBM: per row the point and mask read,
+    # pts_w, mu, covariance and mask written; each sector of both views that
+    # some row reads, once (rows of one scan share buckets)
+    skey = vm.sm.skey_of(vm.sm.pack_keys(vm.vx.voxel_key(pts_w, 0.3), m.origin, bits)[0])
+    sectors = view_sectors(m.view, skey) + view_sectors(m.d_view, skey)
+    lookup_bytes = n * (12 + 1 + 12 + 12 + 24 + 1) + 32 * sectors
+    run = lambda: gn_pass.lookup(q, valid, R, t, m, **kw)  # noqa: E731
+    plain = lambda: gn_pass.lookup_ref(q, valid, R, t, m, **kw)  # noqa: E731
+    call_ms = event_ms(run)
+    # warm: the graph's calls read the same rows, so the views' sectors stay
+    # in L2 after the first, as in a row's later GN passes; cold: L2 emptied
+    # before each call, as in a row's first pass.  The bound (HBM rate) is
+    # held against the cold time.
+    ms = graph_launch_ms(run)
+    cold_ms = cold_graph_launch_ms(run, dev)
+    b = bound(lookup_bytes, 0)
+    lookup = dict(n=n, key_bits=list(bits), hits=hits, max_abs_err=0.0, ms=ms, cold_ms=cold_ms,
+                  call_ms=call_ms, plain_ms=device_ms(plain), bytes=lookup_bytes,
+                  view_sectors=sectors, **b, share=b["bound_ms"] / cold_ms, library_ms=None)
+    # the increment on kernel A's system of these rows
+    covs = torch.tensor([0.01, 0.0, 0.0, 0.01, 0.0, 0.01], device=dev).expand(n, 6).contiguous()
+    JTJ, JTr, num = gn_normal_eq.normal_equations_rotated(pts_w, covs, R, mu, cov, mask)
+    thr = dict(max_iterations=30, cosine_threshold=0.9999, translation_sq_threshold=1e-6)
+    it = torch.tensor(2, device=dev)
+    got = gn_pass.increment(JTJ, JTr, num, R, t, it, deltas=True, **thr)
+    ref = gn_pass.increment_ref(JTJ, JTr, num, R, t, it, deltas=True, **thr)
+    err = max(float((a.float() - b_.float()).abs().max()) for a, b_ in zip(got, ref))
+    size = float((ref[6] - torch.eye(3, device=dev)).abs().max() + ref[7].abs().max())
+    print(f"gn_increment N={n}: max_abs_err={err:.3e} against the plain version "
+          f"(increment size {size:.3e}), iterations {int(got[1])} / {int(ref[1])}")
+    check(err == 0.0 and int(got[1]) == int(ref[1]) and bool(got[2]) == bool(ref[2]),
+          f"the increment kernel is not its plain version's bits at N={n}")
+    run = lambda: gn_pass.increment(JTJ, JTr, num, R, t, it, **thr)  # noqa: E731
+    plain = lambda: gn_pass.increment_ref(JTJ, JTr, num, R, t, it, **thr)  # noqa: E731
+    call_ms = event_ms(run)
+    ms = graph_launch_ms(run)
+    # JTJ, JTr, count, R, t, it read; the carry and the deltas written
+    inc_bytes = 4 * (36 + 6 + 1 + 9 + 3) + 8 + (1 + 8 + 1 + 4 * (9 + 3 + 1))
+    b = bound(inc_bytes, 0)
+    increment = dict(max_abs_err=err, ms=ms, call_ms=call_ms, plain_ms=device_ms(plain),
+                     bytes=inc_bytes, **b, share=b["bound_ms"] / ms, library_ms=None)
+    print(f"gn_pass N={n} {bits}: lookup {lookup['ms']:.5f} ms warm, {lookup['cold_ms']:.5f} "
+          f"cold (plain {lookup['plain_ms']:.4f}, bound {lookup['bound_ms']:.5f}, "
+          f"{lookup['share']:.1%} of cold), increment "
+          f"{increment['ms']:.5f} ms (plain {increment['plain_ms']:.4f})")
+    return {"lookup": lookup, "increment": increment}
+
+
+def gn_pass_kernel_phase(dev) -> dict:
+    """The GN pass's lookup and increment kernels at the replay cells'
+    shapes: mid360's 12,288 align rows under the (10, 10, 10) key split
+    and urban's 24,576 under (11, 11, 9), over a 2^19-row map; each
+    kernel's time in a captured graph beside an empty kernel's there."""
+    from eskf_lio_torch.ops import gn_normal_eq, gn_pass
+
+    gn_pass.reserve_capture(dev)
+    empty = graph_launch_ms(lambda: gn_normal_eq.launch_empty_kernel(dev))
+    print(f"empty <<<1,32>>> kernel in a captured graph: {empty:.5f} ms a launch")
+    res = {"empty_launch_in_graph_ms": empty}
+    res |= {name: gn_pass_shape(dev, n, bits, 17 + i)
+           for i, (name, (n, bits)) in enumerate(GN_PASS_SHAPES.items())}
+    print("gn_pass_shapes " + json.dumps(res))
     return res
 
 
@@ -2388,9 +2607,10 @@ def bench_phase(smi: str) -> dict:
         check(s["icp_convergence_rate"] >= MIN_CONVERGENCE,
               f"{name}: convergence {s['icp_convergence_rate']} < {MIN_CONVERGENCE}")
         check(s["ate_rmse_cm"] <= max_ate, f"{name}: ATE {s['ate_rmse_cm']} cm > {max_ate} cm")
-        check(s["launches"]["gn_normal_eq"] == s["gn_iterations"],
-              f"{name}: kernel A launches {s['launches']['gn_normal_eq']} != GN iterations "
-              f"{s['gn_iterations']}")
+        for k, per in GN_PASS_LAUNCHES.items():
+            check(s["launches"][k] == per * s["gn_iterations"],
+                  f"{name}: {k} launches {s['launches'][k]} != {per} x GN iterations "
+                  f"{s['gn_iterations']}")
         check(s["launches"]["segscan"] == 2 * s["update_rows"],
               f"{name}: kernel B launches {s['launches']['segscan']} != 2 x update rows "
               f"{2 * s['update_rows']}")
@@ -2464,14 +2684,20 @@ def net_time(x, what: str) -> float:
 
 
 def launches_follow_the_rule(line: dict, what: str, shards: int = 1,
-                             rows_key: str = "update_rows") -> None:
+                             rows_key: str = "update_rows", sharded: bool = False) -> None:
     """The launches counted on the device: kernel A once per GN iteration
-    of each shard, kernel B once for the downsampler and once per shard's
-    insert a scan, the preprocessor's kernels `PRE_LAUNCHES` times a scan."""
+    of each shard, the lookup and increment kernels once per GN iteration
+    unsharded (none on the sharded path, a mesh of one included), kernel B
+    once for the downsampler and once per shard's insert a scan, the
+    preprocessor's kernels `PRE_LAUNCHES` times a scan."""
     got = line["launches"]
     check(got["gn_normal_eq"] == shards * line["gn_iterations"] > 0,
           f"{what}: kernel A launched {got['gn_normal_eq']} times, not {shards} x "
           f"{line['gn_iterations']} GN iterations")
+    # twice a GN pass unsharded; the sharded path keeps its own lookup and
+    # increment
+    want = 0 if sharded else GN_PASS_LAUNCHES["gn_pass"] * line["gn_iterations"]
+    check(got["gn_pass"] == want, f"{what}: gn_pass launched {got['gn_pass']} times, not {want}")
     check(got["segscan"] == (shards + 1) * line[rows_key] > 0,
           f"{what}: kernel B launched {got['segscan']} times, not {shards + 1} x "
           f"{line[rows_key]} scans")
@@ -2567,7 +2793,8 @@ def check_tool(label: str, name: str, lines: list[str]) -> dict:
             check(l["per_device_slice"] == slice_capacity(cfg.max_scan_points, d, cfg.shard_slack)
                   and l["per_device_map_rows"] == cfg.hash_capacity // d
                   and l["shards_on_one_device"] is True, f"bench_scaling_mesh D={d}: {l}")
-            launches_follow_the_rule(l, f"bench_scaling_mesh D={d}", shards=d, rows_key="scans")
+            launches_follow_the_rule(l, f"bench_scaling_mesh D={d}", shards=d, rows_key="scans",
+                                     sharded=True)
         return {str(l["devices"]): l for l in js}
     if name == "bench_shard":
         check([l["stage"] for l in js] == ["plain_step", "sharded_step_mesh1", "sharding_overhead"],
@@ -2649,7 +2876,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from eskf_lio_torch.bench import bench_sequence, heavy_config, nvidia_smi_line
-    from eskf_lio_torch.ops import _cuda, gn_normal_eq, preprocess, segscan
+    from eskf_lio_torch.ops import _cuda, gn_normal_eq, gn_pass, preprocess, segscan
     from eskf_lio_torch.utils import graphs
 
     dev = torch.device("cuda", 0)
@@ -2658,7 +2885,8 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}")
     # the ported kernels, whose launches the paths count, and the
     # conditional nodes of the captured step
-    kernels = [gn_normal_eq.KERNEL, segscan.KERNEL, preprocess.KERNEL]
+    kernels = [gn_normal_eq.KERNEL, gn_pass.KERNEL, segscan.KERNEL,
+               preprocess.KERNEL]
     t0 = time.perf_counter()
     built = kernels + [graphs.GRAPH_COND]
     secs = _cuda.build(built)
@@ -2684,6 +2912,7 @@ def main() -> int:
         light_shapes = light_kernel_phase(dev)
         tool_shapes = tool_kernel_phase(dev, config, scan0)
         preprocess_shapes = preprocess_kernel_phase(dev, config, scan0)
+        gn_pass_shapes = gn_pass_kernel_phase(dev)
         res_b["bounds"] = kernel_bounds_phase()
         from eskf_lio_torch.pipeline import replay
 
@@ -2732,6 +2961,12 @@ def main() -> int:
         # replace the chain of XLA ops of the JAX package's preprocessor
         ("preprocess", pre_row(preprocess_shapes), "eskf_lio_torch/csrc/preprocess.cu",
          "eskf_lio_tpu/ops/preprocess.py:186"),
+        # the GN pass's kernels before and after kernel A at urban's shapes; no
+        # Pallas kernel: they replace XLA's fusion of the lookup and se3_exp
+        ("gn_lookup", gn_pass_shapes["urban"]["lookup"], "eskf_lio_torch/csrc/gn_pass.cu",
+         "eskf_lio_tpu/map/voxel_map.py:lookup_packed"),
+        ("gn_increment", gn_pass_shapes["urban"]["increment"], "eskf_lio_torch/csrc/gn_pass.cu",
+         "eskf_lio_tpu/models/registration.py:solve_increment"),
     ]
     line = {
         "kernels": [
@@ -2739,11 +2974,15 @@ def main() -> int:
                 "name": name, "route": "cuda", "source": src, "replaces": rep,
                 # of the replay; each path was driven with the counts set to 0
                 # just before it and read just after
-                "launches": e2e["launches"][name],
-                "launches_by_path": {path: n[name] for path, n in by_path.items()},
+                "launches": e2e["launches"][COUNTED_AS.get(name, name)],
+                "launches_by_path": {path: n[COUNTED_AS.get(name, name)]
+                                     for path, n in by_path.items()},
                 "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "call_ms": r["call_ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"],
+                # the lookup's time with L2 emptied before each call, which
+                # its bound (HBM rate) is held against
+                "cold_ms": r.get("cold_ms"),
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "status": "ok",
             }
@@ -2760,6 +2999,8 @@ def main() -> int:
         # both kernels at the shapes only the tools give them
         "tool_shapes": tool_shapes,
         "preprocess_shapes": preprocess_shapes,
+        # the lookup and increment kernels at mid360's and urban's shapes
+        "gn_pass_shapes": gn_pass_shapes,
         "insert_shape": {"segscan_ms": res_b["insert_shape_ms"],
                          "call_ms": res_b["insert_shape_call_ms"],
                          "bound_ms": res_b["insert_shape_bound_ms"],

@@ -16,6 +16,14 @@ GN iteration.  The adaptive re-match (`lax.cond`, ibid. `:217`) and
 equations go through kernel A (`ops/gn_normal_eq.py`) unless
 `gn_backend="einsum"`.
 
+On CUDA tensors with the default lookup and kernel A, each GN pass is
+three launches (`_align_on_kernels`): `ops/gn_pass.py`'s lookup kernel,
+kernel A, and its increment kernel, which writes the loop's next carry in
+place (the re-match guards become the lookup kernel's own test).  Every
+CPU run, the einsum backend and the sharded map's hooks keep the torch
+chain below, which the kernels' plain versions repeat op for op (and whose
+bits the kernels give on the card).
+
 Two hooks serve the sharded map (`parallel/sharded_map.py`): `lookup_fn`
 answers from a map shard, and `reduce_fn` sums each iteration's normal
 equations over the shards before the solve, so that every shard (and every
@@ -30,7 +38,8 @@ import torch
 
 from eskf_lio_torch.config import Config
 from eskf_lio_torch.map import voxel_map as vm
-from eskf_lio_torch.ops import gn_normal_eq, lie
+from eskf_lio_torch.ops import gn_normal_eq, gn_pass, lie
+from eskf_lio_torch.ops.gn_pass import solve_increment
 from eskf_lio_torch.types import Pose, ProcessedScan
 from eskf_lio_torch.utils.graphs import device_if, device_while
 from eskf_lio_torch.utils.profiling import stage
@@ -84,26 +93,10 @@ def normal_equations(pts_w, covs_w, mu_map, cov_map, mask):
     return JTJ, JTr
 
 
-def solve_increment(JTJ, JTr, num_corr):
-    """Solve JᵀWJ ξ = −JᵀWr.  Returns (R_Δ, t_Δ); degenerate systems (<6
-    correspondences) give the identity update."""
-    dtype = JTJ.dtype
-    ok = num_corr >= 6
-    reg = 1e-3 * (1.0 - ok.to(dtype)) + 1e-8
-    JTJ_safe = JTJ + reg * torch.eye(6, dtype=dtype, device=JTJ.device)
-    # solve_ex: no error check, hence no device sync; the result is
-    # discarded via `ok` when the system is degenerate
-    xi = torch.linalg.solve_ex(JTJ_safe, -JTr)[0]
-    xi = torch.where(ok, xi, torch.zeros_like(xi))
-    return lie.se3_exp(xi)
-
-
 def converged_check(R_delta, t_delta, config: Config) -> torch.Tensor:
     """ref `convergenceCheck` (`Registration.cpp:37-50`)."""
-    cosine = 0.5 * (torch.trace(R_delta) - 1.0)
-    t_sq = torch.sum(t_delta * t_delta)
-    return (cosine >= config.icp_cosine_threshold) & (
-        t_sq <= config.icp_translation_sq_threshold
+    return gn_pass.converged(
+        R_delta, t_delta, config.icp_cosine_threshold, config.icp_translation_sq_threshold
     )
 
 
@@ -117,6 +110,68 @@ def resolve_backend(config: Config) -> str:
             f"{config.gn_backend!r}"
         )
     return "einsum" if config.gn_backend == "einsum" else "fused"
+
+
+def _rematch_needed(pts_w, mask, R_d, t_d, delta: float) -> torch.Tensor:
+    """The adaptive re-match flag per slice: whether the increment (R_d,
+    t_d) may move a matched point farther than `delta`, a bound on any scan
+    point's displacement rotating about the scan centroid c."""
+    w = mask.to(pts_w.dtype)
+    n_valid = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
+    c = (pts_w * w[..., None]).sum(-2) / n_valid
+    r_c = torch.sqrt((((pts_w - c[..., None, :]) ** 2).sum(-1) * w).amax(-1))
+    theta = torch.arccos(torch.clamp(0.5 * (torch.trace(R_d) - 1.0), -1.0, 1.0))
+    drift = c @ (R_d - torch.eye(3, dtype=pts_w.dtype, device=pts_w.device)).T + t_d
+    return (theta * r_c + torch.linalg.norm(drift, dim=-1) > delta).reshape(-1)
+
+
+def _align_on_kernels(scan, voxmap, guess, config, tracer) -> AlignResult:
+    """`align` on the card with the default lookup and kernel A: each GN pass
+    is three launches, `gn_pass.lookup`, kernel A, `gn_pass.increment`.
+    The first pass writes fresh buffers; the loop's passes update its carry
+    in place, which under capture is the WHILE node's own, so a pass copies
+    nothing.  carry =
+    (active, it, conv, R_tot, t_tot, num_corr, mu, cov_map_packed, mask)
+    and, with the adaptive re-match, `need`."""
+    relook = max(int(config.icp_relookup_every), 1)
+    delta = float(config.icp_rematch_threshold)
+    adaptive = delta > 0.0
+    max_it = int(config.icp_max_iterations)
+    covs_packed = vm.pack_cov(scan.covs).contiguous()  # loop-invariant (body frame)
+    lookup_kw = dict(voxel_size=config.map_voxel_size,
+                     max_points_per_voxel=config.max_points_per_voxel,
+                     key_bits=config.map_key_bits, relook=relook)
+    increment_kw = dict(max_iterations=max_it, cosine_threshold=config.icp_cosine_threshold,
+                        translation_sq_threshold=config.icp_translation_sq_threshold,
+                        deltas=adaptive)
+
+    def body(carry, first: bool = False):
+        stage(tracer, "gn", tick=True)
+        if first:
+            R_tot, t_tot, it, need, corr, state = guess.R, guess.t, None, None, None, None
+        else:
+            state, corr = carry[:6], carry[6:9]
+            it, R_tot, t_tot = state[1], state[3], state[4]
+            need = carry[9] if adaptive else None
+        pts_w, mu, cov_map_packed, mask = gn_pass.lookup(
+            scan.points, scan.valid, R_tot, t_tot, voxmap, out=corr, it=it, need=need,
+            **lookup_kw)
+        JTJ, JTr, num_corr = gn_normal_eq.normal_equations_rotated(
+            pts_w, covs_packed, R_tot, mu, cov_map_packed, mask)
+        new = gn_pass.increment(JTJ, JTr, num_corr, R_tot, t_tot, it, out=state,
+                                **increment_kw)
+        if not adaptive:
+            return (*new, mu, cov_map_packed, mask)
+        *new, R_d, t_d = new
+        return (*new, mu, cov_map_packed, mask, _rematch_needed(pts_w, mask, R_d, t_d, delta))
+
+    # the first pass always runs (it = 0 < max, not converged) and always
+    # looks up: outside the loop, so that an eager loop reads its condition
+    # once a pass
+    carry = device_while(body, body(None, first=True), max_it - 1)
+    _, it, conv, R_tot, t_tot, num_corr, *_ = carry
+    return AlignResult(pose=Pose(R_tot, t_tot), iterations=it, converged=conv,
+                       num_correspondences=num_corr.to(torch.int64))
 
 
 def align(
@@ -151,6 +206,10 @@ def align(
     sliced = scan.points.dim() == 3
     if sliced and (lookup_fn is None or reduce_fn is None):
         raise ValueError("a scan of owner slices needs lookup_fn and reduce_fn")
+    backend = resolve_backend(config)
+    if (lookup_fn is None and reduce_fn is None and backend == "fused" and scan.points.is_cuda
+            and int(config.icp_max_iterations) > 0):
+        return _align_on_kernels(scan, voxmap, guess, config, tracer)
     if lookup_fn is None:
         def lookup_fn(pts):
             return vm.lookup(
@@ -160,7 +219,6 @@ def align(
                 key_bits=config.map_key_bits,
             )
 
-    backend = resolve_backend(config)
     covs = scan.covs
     covs_packed = vm.pack_cov(covs).contiguous()  # loop-invariant (body frame)
 
@@ -232,15 +290,7 @@ def align(
         R_tot, t_tot = R_d @ R_tot, R_d @ t_tot + t_d
         conv = converged_check(R_d, t_d, config)
         if adaptive:
-            # bound on any scan point's displacement by this increment,
-            # rotating about the scan centroid c
-            w = mask.to(pts_w.dtype)
-            n_valid = torch.clamp(w.sum(-1, keepdim=True), min=1.0)
-            c = (pts_w * w[..., None]).sum(-2) / n_valid
-            r_c = torch.sqrt((((pts_w - c[..., None, :]) ** 2).sum(-1) * w).amax(-1))
-            theta = torch.arccos(torch.clamp(0.5 * (torch.trace(R_d) - 1.0), -1.0, 1.0))
-            drift = c @ (R_d - torch.eye(3, dtype=pts_w.dtype, device=pts_w.device)).T + t_d
-            need = (theta * r_c + torch.linalg.norm(drift, dim=-1) > delta).reshape(-1)
+            need = _rematch_needed(pts_w, mask, R_d, t_d, delta)
         it = it + 1
         active = (it < max_it) & ~conv
         return (active, it, conv, R_tot, t_tot, num_corr.reshape(()).to(torch.float32),

@@ -51,8 +51,8 @@ from typing import Callable, Sequence
 
 import torch
 
-from eskf_lio_torch.ops import gn_normal_eq, preprocess, segscan
-from eskf_lio_torch.ops._cuda import INT, PTR, CudaKernel
+from eskf_lio_torch.ops import gn_normal_eq, gn_pass, preprocess, segscan
+from eskf_lio_torch.ops._cuda import INT, PTR, CudaKernel, build
 from eskf_lio_torch.parallel import distributed as dist
 
 _U64 = ctypes.c_ulonglong
@@ -253,8 +253,11 @@ def prepare(device: torch.device, segscan_rows: int) -> torch.cuda.Stream:
     collective, so every process prepares at the same point of its run, as
     the sharded driver's processes do).  Returns the capture stream."""
     device = _indexed(device)
+    # the sources a step launches, one nvcc each started together (none when built)
+    build([GRAPH_COND, gn_normal_eq.KERNEL, gn_pass.KERNEL, segscan.KERNEL, preprocess.KERNEL])
     GRAPH_COND.lib()
     gn_normal_eq.reserve_capture(device)
+    gn_pass.reserve_capture(device)
     segscan.reserve_capture(device, segscan_rows)
     preprocess.reserve_capture(device)
     if device.index not in _CAPTURE_STREAMS:

@@ -1,6 +1,7 @@
-"""Kernels A and B and the preprocessor's kernels over inputs that end where
-the device may read (no JAX counterpart: a check of the loads of
-`csrc/gn_normal_eq.cu`, `csrc/segscan.cu` and `csrc/preprocess.cu`).
+"""Kernels A and B, the preprocessor's and the GN pass's kernels over inputs
+that end where the device may read (no JAX counterpart: a check of the
+loads of `csrc/gn_normal_eq.cu`, `csrc/segscan.cu`, `csrc/preprocess.cu`
+and `csrc/gn_pass.cu`).
 
     python -m eskf_lio_torch.utils.kernel_bounds        # on the card, ~10 s
 
@@ -33,12 +34,20 @@ neighbour's bytes unseen unless the allocation ends a mapped range.
   cannot overflow [8,192 -> 8,192].  An input that is a slice (the first K
   rows of a sort) is staged as the slice alone.  The outputs must equal,
   bit for bit, those of the same call on device-resident inputs.
+* The GN pass's lookup and increment kernels: every input (the scan's
+  points and mask, the pose, the map's origin and both views, the re-match
+  flag and the iteration count; kernel A's sums and the count), each ending
+  its own range, at mid360's and urban's align rows under their key splits
+  and at a ragged N.  The map is small (2,048 main and 1,024 delta buckets)
+  and the queries spread over 40^3 voxels, so nearly every bucket of both
+  views is probed, the last one of each always.  The outputs must equal,
+  bit for bit, those of the same call on device-resident inputs.
 
 Prints `ok B N W max_abs_err` per kernel-B shape (head rows against the
 plain version), `ok A N rel_err` per kernel-A shape (the sums against the
 plain version, relative to the sum of the terms' absolute values), `ok P N
-K path equal` per preprocessor shape, and a last `kernel_bounds {...}`
-line.  A fault ends the process's CUDA context,
+K path equal` per preprocessor shape, `ok G N bits equal` per GN-pass shape,
+and a last `kernel_bounds {...}` line.  A fault ends the process's CUDA context,
 so callers run this in a process of its own and read its exit code.  A
 measuring tool: nothing in the package imports it.
 """
@@ -55,8 +64,9 @@ import numpy as np
 import torch
 
 from eskf_lio_torch.config import Config
+from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.ops import gn_normal_eq as gn
-from eskf_lio_torch.ops import lie, preprocess, segscan
+from eskf_lio_torch.ops import gn_pass, lie, preprocess, segscan
 from eskf_lio_torch.ops._cuda import stream_handle
 from eskf_lio_torch.types import Pose, Scan, StateHistory
 
@@ -66,6 +76,8 @@ GN_SHAPES = (16384, 12288, 8192, 32768, 8191, 1000)
 # (raw points N, scan budget K, path)
 PRE_SHAPES = ((24576, 12288, "deskew"), (131072, 32768, "deskew"), (24576, 12288, "init"),
               (8192, 8192, "deskew"))
+# (align rows N, key split)
+GN_PASS_SHAPES = ((12288, (10, 10, 10)), (24576, (11, 11, 9)), (1001, (10, 10, 10)))
 CHUNK = 1 << 16  # host registrations end on 64 KiB borders here
 PAD_KEY = 2**31 - 1
 
@@ -211,6 +223,62 @@ def preprocess_call(n: int, k: int, path: str, dev) -> bool:
         return all(torch.equal(a, b) for a, b in zip(want, got))
 
 
+def gn_pass_call(n: int, bits, dev) -> bool:
+    """The lookup kernel (both re-match guards given) and the increment
+    kernel once on device-resident inputs and once with every input staged
+    in host memory that ends a registered range; whether the outputs are
+    the same bits."""
+    rng = np.random.default_rng(n)
+    T = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)  # noqa: E731
+    kw = dict(voxel_size=0.3, max_points_per_voxel=1000, key_bits=bits)
+    m = vm.VoxelMap.create(1 << 12, device=dev, key_bits=bits)
+    covs = T(np.tile([0.01, 0.0, 0.0, 0.01, 0.0, 0.01], (3000, 1)))
+    for fold in (True, False):  # one insert folded into the main tier, one left in the delta
+        near = T(rng.uniform(-1.5, 1.5, (3000, 3)))
+        m, _ = vm.insert(m, near, covs, torch.ones(3000, dtype=torch.bool, device=dev), **kw)
+        if fold:
+            m, _ = vm.compact(m, max_points_per_voxel=1000)
+    pts, valid = T(rng.uniform(-6.0, 6.0, (n, 3))), torch.as_tensor(rng.random(n) < 0.9, device=dev)
+    R, t = lie.so3_exp(T([0.01, -0.02, 0.015])), T([0.05, -0.03, 0.02])
+    if n >= 12288:  # the last bucket of both views is probed
+        skey = vm.sm.skey_of(vm.sm.pack_keys(
+            vm.vx.voxel_key(lie.transform_points(R, t, pts), 0.3), m.origin, bits)[0])
+        for view in (m.view, m.d_view):
+            last = view.shape[0] - 1
+            assert bool((vm.sm.bucket_of(skey, view.shape[0]) == last).any()), view.shape
+    need = torch.ones(1, dtype=torch.bool, device=dev)
+    it = torch.tensor(4, device=dev)
+    guards = dict(it=it, relook=2, need=need)
+    fresh = lambda: (torch.empty((n, 3), device=dev), torch.empty((n, 6), device=dev),  # noqa: E731
+                     torch.empty(n, dtype=torch.bool, device=dev))
+    want = gn_pass.lookup(pts, valid, R, t, m, out=fresh(), **kw, **guards)
+    JTJ, JTr, num = gn.normal_equations_rotated(want[0], covs[:1].expand(n, 6).contiguous(), R,
+                                                *want[1:])
+    thr = (30, 0.9999, 1e-6)
+    carry = lambda: tuple(torch.empty(s, dtype=d, device=dev) for s, d in (  # noqa: E731
+        ((), torch.bool), ((), torch.int64), ((), torch.bool), ((3, 3), torch.float32),
+        ((3,), torch.float32), ((), torch.float32)))
+    want_inc = gn_pass.increment(JTJ, JTr, num, R, t, it, max_iterations=thr[0],
+                                 cosine_threshold=thr[1], translation_sq_threshold=thr[2],
+                                 deltas=True)
+    with contextlib.ExitStack() as held:
+
+        def staged(x):
+            if x is None:
+                return 0
+            _, (start,) = held.enter_context(ending_a_range([x.cpu().numpy()]))
+            return start
+
+        got = gn_pass._lookup_kernel(pts, valid, R, t, m, bits, 0.3, 1000, fresh(), it, 2,
+                                     need, staged)
+        got_inc = gn_pass._increment_kernel(JTJ, JTr, num, R, t, it, *thr, carry(), True,
+                                            staged)
+        torch.cuda.synchronize(dev)
+        return (bool(want[3].any())
+                and all(torch.equal(a, b) for a, b in zip(want, got))
+                and all(torch.equal(a, b) for a, b in zip(want_inc, got_inc)))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_bounds: needs an NVIDIA GPU", file=sys.stderr)
@@ -237,8 +305,14 @@ def main() -> int:
         equal = preprocess_call(n, k, path, dev)
         print("ok P", n, k, path, equal, flush=True)
         pre.append({"n": n, "k": k, "path": path, "equal": equal})
+    gn_pass_shapes = []
+    for n, bits in GN_PASS_SHAPES:
+        equal = gn_pass_call(n, bits, dev)
+        print("ok G", n, bits, equal, flush=True)
+        gn_pass_shapes.append({"n": n, "key_bits": list(bits), "equal": equal})
     print("kernel_bounds " + json.dumps({"shapes": errs, "gn_shapes": gn_errs,
-                                         "pre_shapes": pre, "ok": True}), flush=True)
+                                         "pre_shapes": pre, "gn_pass_shapes": gn_pass_shapes,
+                                         "ok": True}), flush=True)
     return 0
 
 
