@@ -48,9 +48,8 @@
    bytes' bound, its wrapper call and its plain version; the lookup also
    with L2 emptied before each call, the time its bound (the distinct
    sectors it reads, at the HBM rate) is held against.  Every path below
-   counts their launches (one `gn_pass.KERNEL`): twice a GN pass, kernel A
-   once, on every unsharded path; none on the sharded ones, which keep
-   their own lookup and increment.
+   counts their launches (one `gn_pass.KERNEL`): L + 1 a GN pass (a lookup
+   per local shard and one increment; twice unsharded), kernel A L times.
    `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
    process of its own, kernel B's values, kernel A's rows and mask and
    every input of the preprocessor's and the GN pass's kernels in host
@@ -180,7 +179,8 @@
    same run; and for the tools that replay
    (`light_stages`, `probe_adaptive`'s warm-up, `ate_matrix`,
    `bench_scaling_mesh`) the launches counted on the device: kernel A
-   D x Σ GN iterations, kernel B (D + 1) x update scans (D = 1 unsharded),
+   D x Σ GN iterations, the GN pass's kernels (D + 1) x Σ GN iterations,
+   kernel B (D + 1) x update scans (D = 1 unsharded),
    the preprocessor's kernels 6 x update scans.
 9. Prints the kernels' JSON line, the nvidia-smi line, and last
    {"ok": true, "device": {...}} — only when every phase passed.
@@ -1221,9 +1221,8 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(
     per_iter, per_scan = (n_shards or 1), 1 + (n_shards or 1)
     check(launches["gn_normal_eq"] == per_iter * iters,
           f"kernel A launches {launches['gn_normal_eq']} != {per_iter} x GN iterations {iters}")
-    # the lookup and increment kernels once each a GN pass; the sharded path
-    # keeps its own lookup and increment (`lookup_fn`, `reduce_fn`): none there
-    want = 0 if n_shards else GN_PASS_LAUNCHES["gn_pass"] * iters
+    # a lookup per local shard and one increment a GN pass
+    want = (per_iter + 1) * iters
     check(launches["gn_pass"] == want, f"gn_pass launches {launches['gn_pass']} != {want}")
     # the downsampler and `insert`, on every update scan and on the init scan
     check(launches["segscan"] == per_scan * (n_upd + 1),
@@ -2684,19 +2683,17 @@ def net_time(x, what: str) -> float:
 
 
 def launches_follow_the_rule(line: dict, what: str, shards: int = 1,
-                             rows_key: str = "update_rows", sharded: bool = False) -> None:
-    """The launches counted on the device: kernel A once per GN iteration
-    of each shard, the lookup and increment kernels once per GN iteration
-    unsharded (none on the sharded path, a mesh of one included), kernel B
-    once for the downsampler and once per shard's insert a scan, the
-    preprocessor's kernels `PRE_LAUNCHES` times a scan."""
+                             rows_key: str = "update_rows") -> None:
+    """The launches counted on the device: kernel A and the lookup kernel
+    once per GN iteration of each shard and the increment kernel once per
+    GN iteration, kernel B once for the downsampler and once per shard's
+    insert a scan, the preprocessor's kernels `PRE_LAUNCHES` times a scan."""
     got = line["launches"]
     check(got["gn_normal_eq"] == shards * line["gn_iterations"] > 0,
           f"{what}: kernel A launched {got['gn_normal_eq']} times, not {shards} x "
           f"{line['gn_iterations']} GN iterations")
-    # twice a GN pass unsharded; the sharded path keeps its own lookup and
-    # increment
-    want = 0 if sharded else GN_PASS_LAUNCHES["gn_pass"] * line["gn_iterations"]
+    # (L + 1) a GN pass: twice unsharded
+    want = (shards + 1) * line["gn_iterations"]
     check(got["gn_pass"] == want, f"{what}: gn_pass launched {got['gn_pass']} times, not {want}")
     check(got["segscan"] == (shards + 1) * line[rows_key] > 0,
           f"{what}: kernel B launched {got['segscan']} times, not {shards + 1} x "
@@ -2793,8 +2790,7 @@ def check_tool(label: str, name: str, lines: list[str]) -> dict:
             check(l["per_device_slice"] == slice_capacity(cfg.max_scan_points, d, cfg.shard_slack)
                   and l["per_device_map_rows"] == cfg.hash_capacity // d
                   and l["shards_on_one_device"] is True, f"bench_scaling_mesh D={d}: {l}")
-            launches_follow_the_rule(l, f"bench_scaling_mesh D={d}", shards=d, rows_key="scans",
-                                     sharded=True)
+            launches_follow_the_rule(l, f"bench_scaling_mesh D={d}", shards=d, rows_key="scans")
         return {str(l["devices"]): l for l in js}
     if name == "bench_shard":
         check([l["stage"] for l in js] == ["plain_step", "sharded_step_mesh1", "sharding_overhead"],

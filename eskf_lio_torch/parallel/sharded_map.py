@@ -278,22 +278,12 @@ def make_sharded_scan_step(config: Config, mesh: ShardMesh, tracer=None):
         s_pts, s_covp, s_valid = (torch.stack(x) for x in zip(*slices))
         sliced = ProcessedScan(points=s_pts, covs=vm.unpack_cov(s_covp), valid=s_valid)
 
-        # 5. sharded VGICP: per-shard slice lookup + summed normal
-        # equations.  A block only stores owned voxels, so `hit` is the
-        # exact ownership filter — a point over-claimed by two shards
+        # 5. sharded VGICP: each slice looked up in its own block + summed
+        # normal equations.  A block only stores owned voxels, so `hit` is
+        # the exact ownership filter — a point over-claimed by two shards
         # hits on exactly one of them.
-        def lookup_fn(pts):
-            return tuple(
-                torch.stack(x) for x in zip(*(
-                    vm.lookup(block, pts[i], **map_kw)
-                    for i, block in enumerate(blocks)
-                ))
-            )
-
-        res = registration.align(
-            sliced, None, guess, config, lookup_fn=lookup_fn, reduce_fn=reduce_fn,
-            tracer=tracer,
-        )
+        res = registration.align(sliced, blocks, guess, config, reduce_fn=reduce_fn,
+                                 tracer=tracer)
 
         # 6. measurement update: once per process
         stage(tracer, "pose_update")

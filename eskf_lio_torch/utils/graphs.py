@@ -203,14 +203,15 @@ def device_if(pred: torch.Tensor, fn: Callable, outs=None, otherwise: Callable |
 def device_while(body: Callable, carry: Sequence[torch.Tensor], max_iterations: int):
     """`lax.while_loop` whose condition is `carry[0]`, a 0-dim device bool:
     `body(carry)` returns the next carry (same shapes and types, its first
-    entry the next condition).  Under capture one WHILE node whose buffers
-    are copies of `carry`; eagerly one read a pass; in select mode
-    `max_iterations` guarded passes (the loop must end within them).
-    Returns the final carry."""
+    entry the next condition) and may write it in place.  Under capture one
+    WHILE node whose buffers are copies of `carry`; eagerly one read a pass;
+    in select mode `max_iterations` guarded passes (the loop must end within
+    them), each given a copy of the carry, so that a pass past the end
+    writes nothing that is kept.  Returns the final carry."""
     carry = tuple(carry)
     if _selecting():
         for _ in range(max_iterations):
-            new = tuple(body(carry))
+            new = tuple(body(tuple(c.clone() for c in carry)))
             carry = tuple(torch.where(carry[0], n, c) for n, c in zip(new, carry))
         return carry
     if _capturing(carry[0]):

@@ -40,6 +40,7 @@ from eskf_lio_torch.config import Config, ImuConfig
 from eskf_lio_torch.io import dataset
 from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.ops import gn_normal_eq as gn
+from eskf_lio_torch.ops import gn_pass
 from eskf_lio_torch.ops import lie
 from eskf_lio_torch.ops import preprocess as pre
 from eskf_lio_torch.ops import segscan
@@ -390,10 +391,11 @@ def test_gn_kernel_takes_the_slices_of_a_stacked_scan(dev):
 
 
 def test_sharded_run_on_the_card_twice_equal_bits(dev):
-    """Four shards on the one card: kernel A once per shard per GN
-    iteration, kernel B once in the downsampler and once per shard in
-    `insert`, every scan; two runs equal bit for bit; 2e-2 m from the
-    single-device driver (the same sums in another order)."""
+    """Four shards on the one card: kernel A and the lookup kernel once per
+    shard per GN iteration and the increment kernel once, kernel B once in
+    the downsampler and once per shard in `insert`, every scan; two runs
+    equal bit for bit; 2e-2 m from the single-device driver (the same sums
+    in another order)."""
     from eskf_lio_torch.parallel.sharded_map import ShardedOdometry
 
     cfg = Config(
@@ -407,10 +409,13 @@ def test_sharded_run_on_the_card_twice_equal_bits(dev):
         odo = ShardedOdometry(cfg, n_devices=4)  # the default device is the card
         assert odo.device.type == "cuda" and len(odo.voxmap.blocks) == 4
         a0, b0 = gn.KERNEL.launch_count(), segscan.KERNEL.launch_count()
+        p0 = gn_pass.KERNEL.launch_count()
         summary = odo.run(seq, max_scans=6)
         assert summary["num_scans"] == 6 and not summary["diverged"]
         iters = sum(int(d["icp_iterations"]) for d in odo.diags)
         assert gn.KERNEL.launch_count() - a0 == 4 * iters > 0
+        # L + 1 a GN pass: a lookup per local shard and one increment
+        assert gn_pass.KERNEL.launch_count() - p0 == (4 + 1) * iters
         assert segscan.KERNEL.launch_count() - b0 == (1 + 4) * 6
         assert sum(int(d["gn_slice_overflow"]) + int(d["insert_slice_overflow"])
                    for d in odo.diags) == 0
@@ -499,9 +504,10 @@ def test_graphed_scan_step_equals_the_eager_step_on_the_card(dev):
 def test_graphed_sharded_step_equals_the_eager_step_on_the_card(dev):
     """`ShardedOdometry(n_devices=4)` without a process group runs the
     captured sharded step: over 6 scans the same bits as the same driver on
-    the eager sharded step, kernel A launched 4 x Σ GN iterations and kernel
-    B 5 x scans, counted on the device inside the graphs; the map read after
-    scan k is the map of scan k."""
+    the eager sharded step, kernel A launched 4 x Σ GN iterations, the GN
+    pass's kernels (4 + 1) x Σ GN iterations and kernel B 5 x scans, counted
+    on the device inside the graphs; the map read after scan k is the map of
+    scan k."""
     from eskf_lio_torch.parallel import sharded_map as smod
 
     cfg = Config(
@@ -519,13 +525,14 @@ def test_graphed_sharded_step_equals_the_eager_step_on_the_card(dev):
         if mode == "eager":
             odo.scan_step = smod.make_sharded_scan_step(cfg, odo.mesh)
         maps[mode] = []
-        for k in (gn.KERNEL, segscan.KERNEL):
+        for k in (gn.KERNEL, gn_pass.KERNEL, segscan.KERNEL):
             k.reset_launches()
         summary = odo.run(seq, max_scans=6, on_scan=lambda o, m=maps[mode]: m.append(
             [x.clone() for x in o.voxmap.gather()]))
         assert summary["num_scans"] == 6 and not summary["diverged"]
         iters = sum(int(d["icp_iterations"]) for d in odo.diags)
         assert gn.KERNEL.launch_count() == 4 * iters > 0
+        assert gn_pass.KERNEL.launch_count() == (4 + 1) * iters
         assert segscan.KERNEL.launch_count() == (1 + 4) * 6
         assert any(int(d["removed_voxels"]) > 0 for d in odo.diags)
         runs[mode] = odo

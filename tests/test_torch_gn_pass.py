@@ -3,12 +3,12 @@
 
 On the CPU (tier 1): both wrappers check shapes, dtypes, devices and the
 contiguity of the buffers they write; for CPU tensors they run their plain
-versions, which equal the torch chain they replace (`lie.transform_points`
-+ `voxel_map.lookup`; `solve_increment` + the compose + `converged_check`)
-and leave the launch counts alone; `align`'s path through the wrappers
-(`registration._align_on_kernels`) gives the torch chain's bits on the
-CPU, with the default lookup, with `icp_relookup_every` 2 and with the
-adaptive re-match; the two kernels share one library.
+versions, which equal the torch ops they replace (`lie.transform_points`
++ `voxel_map.lookup`; `solve_increment` + the compose + `gn_pass.converged`)
+and leave the launch counts alone; `align`, whose passes go through the
+wrappers, gives the bits of a GN loop written pass by pass from those plain
+pieces on the CPU, with the default lookup, with `icp_relookup_every` 2 and
+with the adaptive re-match; the two kernels share one library.
 
 On the card (`cuda` marker, skipped without one): the lookup kernel equals
 `voxel_map.lookup` on the kernel's own pts_w bit for bit (both tiers holding
@@ -16,7 +16,8 @@ the same voxels, full buckets, voxels at the point cap, points out of the
 key span, an empty map; key splits (10, 10, 10) and (11, 11, 9); N =
 12,288, 24,576 and ragged), and pts_w equals `lie.transform_points`'; the
 increment kernel against its plain version on real rows' systems; one
-captured `align` on the card against the eager CPU `align` on a real row;
+captured `align` on the card against the eager CPU `align` and the eager
+card `align` on real rows;
 the captured `align` against the JAX package's, stored by
 `tests/test_torch_registration.py` in `tests/data/align_jax.npz`, under each
 re-match setting.
@@ -41,6 +42,7 @@ from eskf_lio_torch.models import registration
 from eskf_lio_torch.ops import _cuda, gn_normal_eq, gn_pass, lie
 from eskf_lio_torch.ops import sortmerge as sm
 from eskf_lio_torch.pipeline import replay
+from eskf_lio_torch.types import Pose
 
 torch.set_num_threads(2)
 
@@ -297,11 +299,10 @@ def test_increment_on_cpu_is_solve_compose_and_check(it):
     active, it1, conv, R1, t1, num1, R_d, t_d = gn_pass.increment(
         JTJ, JTr, num, R, t, it_t, deltas=True, **THRESH)
     assert gn_pass.KERNEL.launch_count() == before
-    want_Rd, want_td = registration.solve_increment(JTJ, JTr, num)
+    want_Rd, want_td = gn_pass.solve_increment(JTJ, JTr, num)
     assert torch.equal(R_d, want_Rd) and torch.equal(t_d, want_td)
     assert torch.equal(R1, want_Rd @ R) and torch.equal(t1, want_Rd @ t + want_td)
-    cfg = Config(icp_cosine_threshold=0.9999, icp_translation_sq_threshold=1e-6)
-    assert torch.equal(conv, registration.converged_check(want_Rd, want_td, cfg))
+    assert torch.equal(conv, gn_pass.converged(want_Rd, want_td, 0.9999, 1e-6))
     assert int(it1) == (0 if it is None else it) + 1
     assert bool(active) == (int(it1) < 8 and not bool(conv))
     assert float(num1) == float(num) and it1.dtype == torch.int64 and active.dtype == torch.bool
@@ -410,29 +411,70 @@ def real_rows(device: str = "cpu", n_keep: int = 3):
     return cfg, kept[2:]  # rows past the first, on a map that has some history
 
 
+def plain_align(scan, voxmap, guess, cfg):
+    """The GN loop pass by pass from the plain pieces: `lie.transform_points`,
+    `voxel_map.lookup`, kernel A's plain version, `solve_increment`, the left
+    compose and `gn_pass.converged`.  The first pass looks up; a later one
+    where the re-match rule asks: the adaptive test decides when
+    `icp_rematch_threshold` > 0, else every `icp_relookup_every`-th pass.
+    Returns (R, t, passes, converged, count, lookups skipped)."""
+    kw = dict(voxel_size=cfg.map_voxel_size, max_points_per_voxel=cfg.max_points_per_voxel,
+              key_bits=cfg.map_key_bits)
+    covs_packed = vm.pack_cov(scan.covs)
+    R, t, it, look, skipped = guess.R, guess.t, 0, True, 0
+    while True:
+        pts_w = lie.transform_points(R, t, scan.points)
+        if look:
+            mu, cov, hit = vm.lookup(voxmap, pts_w, **kw)
+            mask = scan.valid & hit
+        else:
+            skipped += 1
+        JTJ, JTr, num = gn_normal_eq.normal_equations_rotated_ref(pts_w, covs_packed, R, mu, cov,
+                                                                  mask)
+        R_d, t_d = gn_pass.solve_increment(JTJ, JTr, num)
+        R, t = R_d @ R, R_d @ t + t_d
+        conv = bool(gn_pass.converged(R_d, t_d, cfg.icp_cosine_threshold,
+                                      cfg.icp_translation_sq_threshold))
+        it += 1
+        if it >= cfg.icp_max_iterations or conv:
+            return R, t, it, conv, int(num), skipped
+        if cfg.icp_rematch_threshold > 0:
+            look = bool(registration._rematch_needed(pts_w, mask, R_d, t_d,
+                                                     cfg.icp_rematch_threshold))
+        else:
+            look = it % max(cfg.icp_relookup_every, 1) == 0
+
+
 @pytest.mark.parametrize("variant", ["default", "relook2", "adaptive", "relook2+adaptive"])
 def test_align_through_the_wrappers_gives_the_chain_bits_on_the_cpu(variant):
-    """`_align_on_kernels`, the card's path, with the wrappers' plain
-    versions: the torch chain's pose, iterations, convergence and count,
-    bit for bit."""
+    """`align`, whose passes go through the wrappers' plain versions on CPU
+    tensors, against the loop written pass by pass from the plain pieces
+    (`plain_align`): the same pose, iterations, convergence and count, bit
+    for bit, on real rows from their own guess and from a guess moved off
+    it, so that the re-match rules skip some lookups."""
     cfg, kept = real_rows()
     cfg = {
         "default": cfg,
         "relook2": dataclasses.replace(cfg, icp_relookup_every=2),
         "adaptive": dataclasses.replace(cfg, icp_rematch_threshold=0.05),
-        # both set: the adaptive test decides, as in the chain and the JAX package
+        # both set: the adaptive test decides, as in the JAX package
         "relook2+adaptive": dataclasses.replace(cfg, icp_relookup_every=2,
                                                 icp_rematch_threshold=0.05),
     }[variant]
+    moved = lie.so3_exp(torch.tensor([0.02, -0.015, 0.03])), torch.tensor([0.2, -0.12, 0.05])
+    skipped = 0
     for scan, voxmap, guess in kept:
-        chain = registration.align(scan, voxmap, guess, cfg)
-        R0, t0 = guess.R.clone(), guess.t.clone()
-        via = registration._align_on_kernels(scan, voxmap, guess, cfg, None)
-        assert torch.equal(guess.R, R0) and torch.equal(guess.t, t0)  # the guess is not written
-        assert int(via.iterations) == int(chain.iterations) >= 1
-        assert torch.equal(via.pose.R, chain.pose.R) and torch.equal(via.pose.t, chain.pose.t)
-        assert bool(via.converged) == bool(chain.converged)
-        assert int(via.num_correspondences) == int(chain.num_correspondences) > 100
+        for g in (guess, Pose(moved[0] @ guess.R, guess.t + moved[1])):
+            R, t, passes, conv, num, skips = plain_align(scan, voxmap, g, cfg)
+            R0, t0 = g.R.clone(), g.t.clone()
+            got = registration.align(scan, voxmap, g, cfg)
+            assert torch.equal(g.R, R0) and torch.equal(g.t, t0)  # the guess is not written
+            assert int(got.iterations) == passes >= 1
+            assert torch.equal(got.pose.R, R) and torch.equal(got.pose.t, t)
+            assert bool(got.converged) == conv
+            assert int(got.num_correspondences) == num > 100
+            skipped += skips
+    assert (skipped > 0) == (variant != "default")
 
 
 # ---- the card ---------------------------------------------------------------
@@ -486,7 +528,7 @@ def test_lookup_kernel_skips_as_the_plain_version(dev, mode):
 def test_increment_kernel_against_the_plain_version_on_real_systems(dev):
     """Kernel A's systems on every GN pass of real rows, on the card: the
     increment kernel against `solve_increment` + the compose +
-    `converged_check` run by torch on the card, bit for bit (the kernel
+    `gn_pass.converged` run by torch on the card, bit for bit (the kernel
     takes torch's order of operations there), and the identity below six
     correspondences."""
     cfg, kept = real_rows()
@@ -527,8 +569,8 @@ def test_captured_align_on_the_card_against_the_eager_cpu_align(dev):
     """`align` captured on the card (three launches a pass inside the WHILE
     node, each counted) against the eager CPU `align` on the
     same real rows: the same GN passes and the pose within 1e-4; and
-    against the torch chain run eagerly on the card (a `lookup_fn` takes
-    it), bit for bit."""
+    against `align` run eagerly on the card (the same three launches a
+    pass), bit for bit."""
     from eskf_lio_torch.utils.graphs import StepGraph
 
     cfg, kept = real_rows()
@@ -554,12 +596,11 @@ def test_captured_align_on_the_card_against_the_eager_cpu_align(dev):
         assert len(body) == 1 and body[0]["nodes"] <= 7, graph.bodies
         assert float((got.pose.t.cpu() - want.pose.t).abs().max()) < 1e-4
         assert float((got.pose.R.cpu() - want.pose.R).abs().max()) < 1e-4
-        kw = dict(voxel_size=cfg.map_voxel_size, max_points_per_voxel=cfg.max_points_per_voxel,
-                  key_bits=cfg.map_key_bits)
-        chain = registration.align(s, m, g, cfg, lookup_fn=lambda p: vm.lookup(m, p, **kw))
-        assert int(chain.iterations) == passes
-        assert torch.equal(chain.pose.R, got.pose.R) and torch.equal(chain.pose.t, got.pose.t)
-        assert int(chain.num_correspondences) == int(got.num_correspondences)
+        eager = registration.align(s, m, g, cfg)
+        assert int(eager.iterations) == passes
+        assert torch.equal(eager.pose.R, got.pose.R) and torch.equal(eager.pose.t, got.pose.t)
+        assert bool(eager.converged) == bool(got.converged)
+        assert int(eager.num_correspondences) == int(got.num_correspondences)
 
 
 def stored_align_case(case: str) -> dict:
@@ -576,7 +617,7 @@ def test_captured_align_matches_the_stored_jax_outputs(dev, case):
     JAX package's `align` on the same map, scan and re-match setting (the
     default, relook 2, adaptive, both): the same iterations and count, the
     pose within 1e-4, as the CPU's `align` meets it."""
-    from eskf_lio_torch.types import Pose, ProcessedScan
+    from eskf_lio_torch.types import ProcessedScan
     from eskf_lio_torch.utils.graphs import StepGraph
 
     a = stored_align_case(case)

@@ -484,32 +484,43 @@ def test_reduce_fn_identity_leaves_align_bit_equal(seq):
     assert calls == [((6, 6), (6,), ())] * plain.iterations
 
 
+def add_halves(JTJ, JTr, n):
+    assert JTJ.shape == (2, 6, 6) and JTr.shape == (2, 6) and n.shape == (2,)
+    return JTJ[0] + JTJ[1], JTr[0] + JTr[1], n[0] + n[1]
+
+
+def halves_of(processed):
+    """The scan as two stacked slices [2, N/2, ...]."""
+    return TProcessed(*(x.reshape(2, x.shape[0] // 2, *x.shape[1:]) for x in processed))
+
+
 @pytest.mark.parametrize("backend", ["auto", "einsum"])
 def test_reduce_fn_sums_two_halves_of_a_scan(seq, backend):
-    """The scan as two stacked halves with a hook that adds their normal
-    equations equals the whole scan within 1e-5 (another order of the same
-    f32 sums); without the hook a stacked scan is refused."""
+    """The scan as two stacked halves, each looked up in its own map block
+    (here the same map twice), with a hook that adds their normal equations
+    equals the whole scan within 1e-5 (another order of the same f32 sums);
+    without the hook a stacked scan is refused."""
     cfg = dataclasses.replace(TCFG, gn_backend=backend)
     processed, voxmap, guess = align_inputs(seq)
     whole = t_reg.align(processed, voxmap, guess, cfg)
-    halves = TProcessed(*(x.reshape(2, x.shape[0] // 2, *x.shape[1:]) for x in processed))
-
-    def lookup_fn(pts):
-        out = [t_vm.lookup(voxmap, p, voxel_size=cfg.map_voxel_size,
-                           max_points_per_voxel=cfg.max_points_per_voxel) for p in pts]
-        return tuple(torch.stack(x) for x in zip(*out))
-
-    def add_halves(JTJ, JTr, n):
-        assert JTJ.shape == (2, 6, 6) and JTr.shape == (2, 6) and n.shape == (2,)
-        return JTJ[0] + JTJ[1], JTr[0] + JTr[1], n[0] + n[1]
-
-    summed = t_reg.align(halves, None, guess, cfg, lookup_fn=lookup_fn, reduce_fn=add_halves)
+    halves = halves_of(processed)
+    summed = t_reg.align(halves, [voxmap, voxmap], guess, cfg, reduce_fn=add_halves)
     np.testing.assert_allclose(summed.pose.t.numpy(), whole.pose.t.numpy(), atol=1e-5)
     np.testing.assert_allclose(summed.pose.R.numpy(), whole.pose.R.numpy(), atol=1e-5)
     assert summed.iterations == whole.iterations
     assert int(summed.num_correspondences) == int(whole.num_correspondences)
     with pytest.raises(ValueError, match="reduce_fn"):
-        t_reg.align(halves, None, guess, cfg, lookup_fn=lookup_fn)
+        t_reg.align(halves, [voxmap, voxmap], guess, cfg)
+
+
+@pytest.mark.parametrize("blocks", ["one_map", "one_block", "three_blocks"])
+def test_align_refuses_a_block_count_other_than_the_slice_count(seq, blocks):
+    """A scan of two slices takes two map blocks: one map, a list of one
+    block or of three are refused before any pass."""
+    processed, voxmap, guess = align_inputs(seq)
+    given = {"one_map": voxmap, "one_block": [voxmap], "three_blocks": [voxmap] * 3}[blocks]
+    with pytest.raises(ValueError, match="2 slice.* map blocks"):
+        t_reg.align(halves_of(processed), given, guess, TCFG, reduce_fn=add_halves)
 
 
 def test_shard_sum_packs_43_floats():
