@@ -50,6 +50,14 @@
    sectors it reads, at the HBM rate) is held against.  Every path below
    counts their launches (one `gn_pass.KERNEL`): L + 1 a GN pass (a lookup
    per local shard and one increment; twice unsharded), kernel A L times.
+   `predict_shapes`: the IMU prefix's kernel (`csrc/imu_prefix.cu`) at
+   mid360's M = 64 and urban's M = 32 on chunks recorded from both cells
+   (`tests/data/imu_prefix_chunks.npz`) against `eskf.imu_prefix_ref`, bit
+   for bit, one launch a call; timed in a captured graph (L2-warm) beside
+   the plain chain there and an empty kernel.  Every path below counts its
+   launches: one a `predict_chunk_prefix` call (a row of the replay, an
+   update scan or an overflow pre-advance of the live and sharded drivers,
+   a timed row of the bench's series).
    `kernel_bounds`: `python -m eskf_lio_torch.utils.kernel_bounds` in a
    process of its own, kernel B's values, kernel A's rows and mask and
    every input of the preprocessor's and the GN pass's kernels in host
@@ -836,6 +844,9 @@ def e2e_phase(dev, config, seq, packed, kernels) -> dict:
           f"kernel B launches {launches['segscan']} != 2 x update scans + 2 = {2 * n_upd + 2}")
     check(launches["preprocess"] == PRE_LAUNCHES * (n_upd + 1),
           f"preprocess launches {launches['preprocess']} != {PRE_LAUNCHES} x {n_upd + 1} scans")
+    # the IMU prefix once a row, update or predict-only
+    check(launches["imu_prefix"] == b_total,
+          f"imu_prefix launches {launches['imu_prefix']} != {b_total} rows")
     check(res["device_syncs_in_rows_per_scan"] == 0,
           f"the replay's rows waited for the device: {res['sync_sites_in_rows_per_scan']}")
     res["_trajectory"] = (torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs]))
@@ -1170,6 +1181,14 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(
     if digests is not None:
         record_step_inputs(odo, digests)
     stamps, kept = [], {}
+    # the overflow pre-advances, each one predict call beside the scans'
+    pre_advances, predict_only = [0], odo.predict_only
+
+    def counted_predict_only(*args):
+        pre_advances[0] += 1
+        return predict_only(*args)
+
+    odo.predict_only = counted_predict_only
 
     def on_scan(o):
         stamps.append(time.perf_counter())
@@ -1230,6 +1249,11 @@ def drive(run, odo, kernels, seq, digests=None, count_syncs=False, keep_map_at=(
     # the preprocessor once a scan, whatever the shards
     check(launches["preprocess"] == PRE_LAUNCHES * (n_upd + 1),
           f"preprocess launches {launches['preprocess']} != {PRE_LAUNCHES} x {n_upd + 1} scans")
+    # the IMU prefix once an update scan and once an overflow pre-advance
+    res["pre_advances"] = pre_advances[0]
+    check(launches["imu_prefix"] == n_upd + pre_advances[0],
+          f"imu_prefix launches {launches['imu_prefix']} != {n_upd} update scans + "
+          f"{pre_advances[0]} pre-advances")
     return res, kept
 
 
@@ -1381,7 +1405,30 @@ tpu:
 
 def cli_phase(kernels) -> dict:
     """The command line in process: --stream on 2 s of the synthetic
-    simulator at HEAVY capacities, with every artifact it can write."""
+    simulator at HEAVY capacities, with every artifact it can write, the
+    IMU prefix's launches held to the predict calls it made."""
+    from eskf_lio_torch.pipeline import odometry
+
+    # the overflow pre-advances, each one predict call beside the update scans'
+    pre_advances, make_predict_only = [0], odometry.make_predict_only
+
+    def counting_make_predict_only(*args, **kwargs):
+        predict_only = make_predict_only(*args, **kwargs)
+
+        def counted(*a):
+            pre_advances[0] += 1
+            return predict_only(*a)
+
+        return counted
+
+    odometry.make_predict_only = counting_make_predict_only
+    try:
+        return _cli_run(kernels, pre_advances)
+    finally:
+        odometry.make_predict_only = make_predict_only
+
+
+def _cli_run(kernels, pre_advances) -> dict:
     from eskf_lio_torch import cli
     from eskf_lio_torch.bench import heavy_config
     from eskf_lio_torch.config import load_config
@@ -1417,6 +1464,7 @@ def cli_phase(kernels) -> dict:
             wall_s=wall, map_voxels=voxels, pcd_points=points, poses=poses,
             checkpoint_files=sorted(os.listdir(ckpt)),
             launches={k.name: k.launch_count() for k in kernels},
+            pre_advances=pre_advances[0],
         )
         print("cli " + json.dumps(res))
         check(points == voxels > 1000, f"PCD POINTS {points} != map voxels {voxels}")
@@ -1425,8 +1473,11 @@ def cli_phase(kernels) -> dict:
         check(res["launches"]["segscan"] == 2 * poses and res["launches"]["gn_normal_eq"] > 0
               and all(res["launches"][k] == per * res["launches"]["gn_normal_eq"]
                       for k, per in GN_PASS_LAUNCHES.items())
-              and res["launches"]["preprocess"] == PRE_LAUNCHES * poses,
-              f"the CLI's run did not go through the kernels: {res['launches']}")
+              and res["launches"]["preprocess"] == PRE_LAUNCHES * poses
+              and res["launches"]["imu_prefix"] == poses - 1 + pre_advances[0],
+              f"the CLI's run did not go through the kernels: {res['launches']} (the IMU "
+              f"prefix once a scan after the first and once a pre-advance: {poses - 1} + "
+              f"{pre_advances[0]})")
         return res["launches"]
 
 
@@ -1918,6 +1969,62 @@ def gn_pass_kernel_phase(dev) -> dict:
     return res
 
 
+PREDICT_SHAPES = {"mid360": 64, "urban": 32}  # M of each cell's chunks
+
+
+def predict_kernel_phase(dev) -> dict:
+    """The IMU prefix's kernel at the replay cells' chunk lengths, on rows
+    recorded from their generators: bit for bit against the plain chain,
+    one launch a call, and each timed in a captured graph beside the chain
+    captured the same way and an empty kernel there."""
+    import numpy as np
+    import torch
+
+    from eskf_lio_torch.models import eskf
+    from eskf_lio_torch.ops import gn_normal_eq, imu_prefix
+    from eskf_lio_torch.types import FilterState, ImuChunk
+
+    imu_prefix.reserve_capture(dev)
+    data = np.load(ROOT / "tests" / "data" / "imu_prefix_chunks.npz")
+    empty = graph_launch_ms(lambda: gn_normal_eq.launch_empty_kernel(dev))
+    res = {"empty_launch_in_graph_ms": empty}
+    for name, m in PREDICT_SHAPES.items():
+        state = FilterState(*(torch.as_tensor(data[f"{name}.0.state.{f}"], device=dev)
+                              for f in FilterState._fields))
+        chunk = ImuChunk(*(torch.as_tensor(data[f"{name}.0.chunk.{f}"], device=dev)
+                           for f in ImuChunk._fields))
+        check(chunk.dt.shape[0] == m, f"{name}: a recorded chunk of {chunk.dt.shape[0]} samples")
+        q_diag = torch.as_tensor(data[f"{name}.q_diag"], device=dev)
+        base_mask = chunk.t_rel <= 0.0
+        before = imu_prefix.KERNEL.launch_count()
+        got = imu_prefix.imu_prefix(state, chunk, q_diag, base_mask)
+        torch.cuda.synchronize()
+        launches = imu_prefix.KERNEL.launch_count() - before
+        want = eskf.imu_prefix_ref(state, chunk, q_diag, base_mask)
+        pairs = [(got[0].P, want[0].P), (got[0].p, want[0].p), (got[0].v, want[0].v),
+                 (got[0].q, want[0].q), (got[1].p, want[1].p), (got[1].q, want[1].q),
+                 (got[1].t_rel, want[1].t_rel), (got[1].valid, want[1].valid)]
+        equal = all(torch.equal(x, y) if x.dtype == torch.bool else
+                    torch.equal(x.view(torch.int32), y.view(torch.int32)) for x, y in pairs)
+        err = max(float((x - y).abs().max()) for x, y in pairs if x.dtype != torch.bool)
+        run = lambda: imu_prefix.imu_prefix(state, chunk, q_diag, base_mask)  # noqa: E731
+        plain = lambda: eskf.imu_prefix_ref(state, chunk, q_diag, base_mask)  # noqa: E731
+        ms = graph_launch_ms(run)
+        res[name] = dict(
+            m=m, bit_equal=equal, launches_a_call=launches, ms=ms, plain_ms=graph_launch_ms(plain),
+            call_ms=event_ms(run),
+            # latency: ~0.2 M fmas at M = 64 (the transitions' pattern) on one SM in
+            # dependent rounds, bytes ~10 KB
+            bound_ms=None, bound_by="latency", max_abs_err=err, library_ms=None, cold_ms=None)
+        print(f"imu_prefix M={m} ({name}): {ms:.5f} ms a launch in a captured graph (plain "
+              f"chain {res[name]['plain_ms']:.4f}, empty kernel {empty:.5f}), bit-equal {equal}, "
+              f"{launches} launch a call")
+        check(equal, f"imu_prefix at M={m}: the kernel's bits differ from the plain chain's")
+        check(launches == imu_prefix.LAUNCHES, f"imu_prefix at M={m}: {launches} launches a call")
+    print("predict_shapes " + json.dumps(res))
+    return res
+
+
 def tool_kernel_phase(dev, config, scan_points) -> dict:
     """Both kernels at the shapes the tools (`eskf_lio_torch/tools/`) give
     them and no other path does, against their plain versions with the
@@ -2087,6 +2194,21 @@ def sharded_phase(seq, kernels, single, slices):
 
     twice_bits, eager_bits = same_run(again), same_run(eager)
 
+    # the same driver with the IMU prefix as the plain chain, as before its
+    # kernel: the kernel gives the chain's bits, so the same trajectory
+    from eskf_lio_torch.models import eskf
+
+    kernel_predict = eskf.predict_chunk_prefix
+    eskf.predict_chunk_prefix = lambda state, chunk, noise, base_mask=None: (
+        eskf.imu_prefix_ref(state, chunk, noise.q_diag, base_mask))
+    try:
+        chain = ShardedOdometry(config, n_devices=N_SHARDS)
+        chain.run(seq)
+        torch.cuda.synchronize()
+    finally:
+        eskf.predict_chunk_prefix = kernel_predict
+    chain_bits = same_run(chain)
+
     # every live key of block d, in both tiers, is owned by shard d
     foreign = 0
     for d, block in enumerate(first_map):
@@ -2123,7 +2245,7 @@ def sharded_phase(seq, kernels, single, slices):
         distinct_voxels={"sharded": voxels[0], "single": voxels[1]},
         point_mass={"sharded": mass[0], "single": mass[1]},
         foreign_keys=foreign, graph_twice_bit_equal=twice_bits,
-        graph_equals_eager_bitwise=eager_bits,
+        graph_equals_eager_bitwise=eager_bits, graph_equals_plain_chain_bitwise=chain_bits,
     )
     print("sharded " + json.dumps(res))
     check(res_1["scans"] == len(seq.scans), f"the sharded driver processed {res_1['scans']} scans")
@@ -2137,6 +2259,8 @@ def sharded_phase(seq, kernels, single, slices):
     check(abs(mass[0] - mass[1]) <= 0.02 * mass[1], f"point mass diverged: {mass}")
     check(twice_bits, "two runs of the graphed sharded driver differ in their bits")
     check(eager_bits, "the graphed and the eager sharded step differ in their bits")
+    check(chain_bits, "the sharded step with the IMU prefix's kernel and with the plain chain "
+                      "differ in their bits")
     check(res_2["device_syncs_per_scan"] <= MAX_STREAM_SYNCS_PER_SCAN,
           f"the graphed sharded driver waited for the device {res_2['device_syncs_per_scan']:.2f} "
           f"times a scan (at most {MAX_STREAM_SYNCS_PER_SCAN})")
@@ -2616,6 +2740,9 @@ def bench_phase(smi: str) -> dict:
         check(s["launches"]["preprocess"] == PRE_LAUNCHES * s["update_rows"],
               f"{name}: preprocess launches {s['launches']['preprocess']} != {PRE_LAUNCHES} x "
               f"update rows {s['update_rows']}")
+        check(s["launches"]["imu_prefix"] == s["timed_scans"],
+              f"{name}: imu_prefix launches {s['launches']['imu_prefix']} != timed rows "
+              f"{s['timed_scans']}")
     stages = last["stages_ms"]
     check(set(stages) == set(BENCH_STAGES) and all(stages[k] > 0 for k in BENCH_STAGES),
           f"the stage breakdown is incomplete: {stages}")
@@ -2687,7 +2814,9 @@ def launches_follow_the_rule(line: dict, what: str, shards: int = 1,
     """The launches counted on the device: kernel A and the lookup kernel
     once per GN iteration of each shard and the increment kernel once per
     GN iteration, kernel B once for the downsampler and once per shard's
-    insert a scan, the preprocessor's kernels `PRE_LAUNCHES` times a scan."""
+    insert a scan, the preprocessor's kernels `PRE_LAUNCHES` times a scan,
+    the IMU prefix once a predict call (a series' timed rows, else the
+    line's `predict_calls`: a scan's, an overflow row's or pre-advance's)."""
     got = line["launches"]
     check(got["gn_normal_eq"] == shards * line["gn_iterations"] > 0,
           f"{what}: kernel A launched {got['gn_normal_eq']} times, not {shards} x "
@@ -2701,6 +2830,10 @@ def launches_follow_the_rule(line: dict, what: str, shards: int = 1,
     check(got["preprocess"] == PRE_LAUNCHES * line[rows_key],
           f"{what}: the preprocessor's kernels launched {got['preprocess']} times, not "
           f"{PRE_LAUNCHES} x {line[rows_key]} scans")
+    calls = line["timed_scans"] if "timed_scans" in line else line["predict_calls"]
+    check(got["imu_prefix"] == calls,
+          f"{what}: imu_prefix launched {got['imu_prefix']} times, not once a predict call "
+          f"({calls})")
 
 
 def series_ok(line: dict, what: str, max_ate_cm: float) -> None:
@@ -2872,7 +3005,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
 
     from eskf_lio_torch.bench import bench_sequence, heavy_config, nvidia_smi_line
-    from eskf_lio_torch.ops import _cuda, gn_normal_eq, gn_pass, preprocess, segscan
+    from eskf_lio_torch.ops import _cuda, gn_normal_eq, gn_pass, imu_prefix, preprocess, segscan
     from eskf_lio_torch.utils import graphs
 
     dev = torch.device("cuda", 0)
@@ -2882,7 +3015,7 @@ def main() -> int:
     # the ported kernels, whose launches the paths count, and the
     # conditional nodes of the captured step
     kernels = [gn_normal_eq.KERNEL, gn_pass.KERNEL, segscan.KERNEL,
-               preprocess.KERNEL]
+               preprocess.KERNEL, imu_prefix.KERNEL]
     t0 = time.perf_counter()
     built = kernels + [graphs.GRAPH_COND]
     secs = _cuda.build(built)
@@ -2909,6 +3042,7 @@ def main() -> int:
         tool_shapes = tool_kernel_phase(dev, config, scan0)
         preprocess_shapes = preprocess_kernel_phase(dev, config, scan0)
         gn_pass_shapes = gn_pass_kernel_phase(dev)
+        predict_shapes = predict_kernel_phase(dev)
         res_b["bounds"] = kernel_bounds_phase()
         from eskf_lio_torch.pipeline import replay
 
@@ -2963,6 +3097,10 @@ def main() -> int:
          "eskf_lio_tpu/map/voxel_map.py:lookup_packed"),
         ("gn_increment", gn_pass_shapes["urban"]["increment"], "eskf_lio_torch/csrc/gn_pass.cu",
          "eskf_lio_tpu/models/registration.py:solve_increment"),
+        # the IMU prefix at mid360's M = 64; no Pallas kernel: it replaces
+        # XLA's fusion of the JAX package's associative scans and cumsums
+        ("imu_prefix", predict_shapes["mid360"], "eskf_lio_torch/csrc/imu_prefix.cu",
+         "eskf_lio_tpu/models/eskf.py:predict_chunk_prefix"),
     ]
     line = {
         "kernels": [
@@ -2997,6 +3135,8 @@ def main() -> int:
         "preprocess_shapes": preprocess_shapes,
         # the lookup and increment kernels at mid360's and urban's shapes
         "gn_pass_shapes": gn_pass_shapes,
+        # the IMU prefix at mid360's and urban's chunk lengths
+        "predict_shapes": predict_shapes,
         "insert_shape": {"segscan_ms": res_b["insert_shape_ms"],
                          "call_ms": res_b["insert_shape_call_ms"],
                          "bound_ms": res_b["insert_shape_bound_ms"],

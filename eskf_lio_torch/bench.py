@@ -65,7 +65,7 @@ from eskf_lio_torch.config import Config, ImuConfig
 from eskf_lio_torch.io import dataset, native_runtime
 from eskf_lio_torch.map import voxel_map as vm
 from eskf_lio_torch.models import eskf, registration
-from eskf_lio_torch.ops import _cuda, gn_normal_eq, gn_pass, preprocess, segscan
+from eskf_lio_torch.ops import _cuda, gn_normal_eq, gn_pass, imu_prefix, preprocess, segscan
 from eskf_lio_torch.pipeline import odometry as odo
 from eskf_lio_torch.pipeline import replay
 from eskf_lio_torch.types import Pose, ProcessedScan
@@ -89,7 +89,8 @@ SEQUENCE_S = 13.0
 MIN_ROWS = 64  # the JAX bench's least sequence for a timed window
 # iterations per timing of each stage (the JAX bench's k)
 STAGE_ITERS = dict(predict=200, preprocess=30, align=20, insert=30, evict=20, full_step=30)
-KERNELS = (gn_normal_eq.KERNEL, gn_pass.KERNEL, segscan.KERNEL, preprocess.KERNEL)
+KERNELS = (gn_normal_eq.KERNEL, gn_pass.KERNEL, segscan.KERNEL, preprocess.KERNEL,
+           imu_prefix.KERNEL)
 
 
 def make_config(max_raw_points: int, max_scan_points: int,

@@ -9,7 +9,9 @@ Pure functions over the `FilterState` NamedTuple (the reference
   transition matrices from a reversed log-step scan.  M ≤ 64 samples, so
   each scan is ≤ 6 rounds of batched products.  `jax.lax.associative_scan`
   groups the products in another order, so results agree with the JAX
-  package to f32 rounding, not bit for bit.
+  package to f32 rounding, not bit for bit.  On the card one launch of
+  `ops/imu_prefix.py`'s kernel, which gives the plain chain's bits
+  (`imu_prefix_ref`, run for CPU tensors).
 * `predict_step` / `predict_chunk` — the sequential form, the test oracle.
 * `pose_update` — the 6-DoF measurement update with error injection and
   covariance reset.
@@ -29,7 +31,7 @@ import torch
 
 from eskf_lio_torch import device as device_policy
 from eskf_lio_torch.config import Config
-from eskf_lio_torch.ops import lie
+from eskf_lio_torch.ops import imu_prefix, lie
 from eskf_lio_torch.types import FilterState, ImuChunk, Pose, StateHistory
 
 
@@ -191,7 +193,19 @@ def predict_chunk_prefix(
     """Parallel-prefix IMU propagation.  `base_mask` ([M] bool) selects the
     prefix of samples the returned state integrates (valid & t ≤ scan end);
     the returned `StateHistory` still covers all samples (the overhang poses
-    deskew points past scan end)."""
+    deskew points past scan end).  One launch of `ops/imu_prefix.py`'s
+    kernel for CUDA tensors, `imu_prefix_ref` for CPU tensors; M ≤ 64."""
+    return imu_prefix.imu_prefix(state, chunk, noise.q_diag, base_mask)
+
+
+def imu_prefix_ref(
+    state: FilterState,
+    chunk: ImuChunk,
+    q_diag: torch.Tensor,
+    base_mask: torch.Tensor | None = None,
+) -> tuple[FilterState, StateHistory]:
+    """Plain PyTorch version of `predict_chunk_prefix` (any device): the
+    chain the kernel replaces, and the card tests' oracle."""
     dtype = state.p.dtype
     dev = state.p.device
     m = chunk.dt.shape[0]
@@ -249,7 +263,7 @@ def predict_chunk_prefix(
     eye18 = torch.eye(18, dtype=dtype, device=dev)
     S = torch.cat([prefix.flip(0)[1:], eye18[None]])  # S[i-1] == S_i
 
-    q_scaled = noise.q_diag[None, :] * torch.cat(
+    q_scaled = q_diag[None, :] * torch.cat(
         [(dt_b * dt_b)[:, None].expand(m, 6), dt_b[:, None].expand(m, 6)], dim=1
     )  # [M,12]
     D = torch.zeros((m, 18), dtype=dtype, device=dev)

@@ -17,7 +17,8 @@ sweep, seed 3).  Each D warms up on 3 scans (on the card: the step's
 capture), then K (default 6) scans are timed on the host's clock, each
 ending in `process_scan`'s read-back.  One JSON line per D: the JAX keys, plus
 the capture's seconds and nodes, and the timed scans' kernel launches
-counted on the device beside the GN iterations and scans they must match.
+counted on the device beside the GN iterations, scans and predict calls
+(a scan's and an overflow pre-advance's) they must match.
 Then the device line.
 """
 
@@ -65,6 +66,14 @@ def run(config: Config, seq: dataset.Sequence, n_dev: int, k: int, dev: torch.de
         runner.process_scan(rec)
     for kern in bench.KERNELS:
         kern.reset_launches()
+    # the timed scans' overflow pre-advances, a predict call each
+    pre_advances, predict_only = [0], runner.predict_only
+
+    def counted_predict_only(*args):
+        pre_advances[0] += 1
+        return predict_only(*args)
+
+    runner.predict_only = counted_predict_only
     timed = seq.scans[WARM_SCANS: WARM_SCANS + k]
     bench.synchronize(dev)
     t0 = time.perf_counter()
@@ -82,6 +91,7 @@ def run(config: Config, seq: dataset.Sequence, n_dev: int, k: int, dev: torch.de
         "launches": {kern.name: kern.launch_count() for kern in bench.KERNELS},
         "gn_iterations": sum(int(d["icp_iterations"]) for d in runner.diags[-len(timed):]),
         "scans": len(timed),
+        "predict_calls": len(timed) + pre_advances[0],
     }
 
 

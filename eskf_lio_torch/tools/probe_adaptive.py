@@ -14,8 +14,8 @@ WHILE node of the captured graph) for:
     python -m eskf_lio_torch.tools.probe_adaptive [--device cpu]
 
 Prints `warm map voxels: N`, then (not a JAX line) the warm-up replay's
-kernel launches counted on the device beside the GN iterations and update
-rows they must match, then `{"variant", "align_ms", "iterations"}` per
+kernel launches counted on the device beside the GN iterations, update
+rows and predict calls (one a row) they must match, then `{"variant", "align_ms", "iterations"}` per
 variant: `align_ms` is k = 30 replays of the captured `align` less k
 replays of a one-kernel graph (`bench.StageTimer`); `iterations` is read
 once, after the timing.  Then the device line.
@@ -73,6 +73,8 @@ def warm_probe(config: Config, seq: dataset.Sequence, dev: torch.device) -> dict
         "launches": {k.name: k.launch_count() for k in bench.KERNELS},
         "gn_iterations": int(diags["icp_iterations"].cpu().numpy()[upd].sum()),
         "update_rows": int(upd.sum()),
+        # a predict call a row, a scan's or an overflow row's
+        "predict_calls": int(chunks.dt.shape[0]),
     }
     noise = eskf.make_noise_params(config, dev)
     chunk = type(chunks)(*(x[-1] for x in chunks))

@@ -51,7 +51,7 @@ from typing import Callable, Sequence
 
 import torch
 
-from eskf_lio_torch.ops import gn_normal_eq, gn_pass, preprocess, segscan
+from eskf_lio_torch.ops import gn_normal_eq, gn_pass, imu_prefix, preprocess, segscan
 from eskf_lio_torch.ops._cuda import INT, PTR, CudaKernel, build
 from eskf_lio_torch.parallel import distributed as dist
 
@@ -255,12 +255,14 @@ def prepare(device: torch.device, segscan_rows: int) -> torch.cuda.Stream:
     the sharded driver's processes do).  Returns the capture stream."""
     device = _indexed(device)
     # the sources a step launches, one nvcc each started together (none when built)
-    build([GRAPH_COND, gn_normal_eq.KERNEL, gn_pass.KERNEL, segscan.KERNEL, preprocess.KERNEL])
+    build([GRAPH_COND, gn_normal_eq.KERNEL, gn_pass.KERNEL, segscan.KERNEL, preprocess.KERNEL,
+           imu_prefix.KERNEL])
     GRAPH_COND.lib()
     gn_normal_eq.reserve_capture(device)
     gn_pass.reserve_capture(device)
     segscan.reserve_capture(device, segscan_rows)
     preprocess.reserve_capture(device)
+    imu_prefix.reserve_capture(device)
     if device.index not in _CAPTURE_STREAMS:
         _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
         for depth in range(MAX_DEPTH):

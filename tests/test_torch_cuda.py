@@ -791,7 +791,7 @@ def test_bench_light_series_on_the_card(dev, capsys, monkeypatch):
     assert light["icp_convergence_rate"] >= 0.9 and light["ate_rmse_cm"] <= 1.0
     assert light["launches"] == {"gn_normal_eq": light["gn_iterations"],
                                  "gn_pass": 2 * light["gn_iterations"], "segscan": 128,
-                                 "preprocess": 6 * 64}
+                                 "preprocess": 6 * 64, "imu_prefix": 64}
     assert lines[0]["value"] == light["scans_per_sec"] > 0
 
 

@@ -1,5 +1,7 @@
 """The port's ESKF (`eskf_lio_torch/models/eskf.py`) vs the JAX package and
-vs its own sequential form, on the chunks of `tests/test_eskf_prefix.py`.
+vs its own sequential form, on the chunks of `tests/test_eskf_prefix.py`;
+and the JAX package's prefix outputs stored for the card's kernel
+(`tests/data/imu_prefix_jax.npz`) against the live JAX package.
 
 Tolerances are those of `test_eskf_prefix.py` (position 1e-4 m, quaternion
 1e-5, covariance rtol 1e-3 / atol 2e-6): the log-step scans group the f32
@@ -20,6 +22,7 @@ from eskf_lio_torch.types import ImuChunk as TChunk, Pose as TPose
 from eskf_lio_tpu.config import Config as JConfig
 from eskf_lio_tpu.models import eskf as j_eskf
 from eskf_lio_tpu.types import ImuChunk as JChunk, Pose as JPose
+from test_torch_imu_prefix import JAX_CASES, JAX_OUTPUTS, jax_prefix, stored_jax_case
 
 torch.set_num_threads(2)
 
@@ -88,6 +91,21 @@ def test_prefix_matches_jax_and_sequential(name):
     ok = hist.valid.numpy() & (hist.t_rel.numpy() <= 0)
     seq = t_eskf.state_at(full, int(np.where(ok)[0].max()))
     assert_state_close(t_base, seq)
+
+
+@pytest.mark.parametrize("label", JAX_CASES)
+def test_stored_prefix_outputs_are_the_jax_packages(label):
+    """`tests/data/imu_prefix_jax.npz`, to which the card's kernel is held
+    (tests/test_torch_imu_prefix.py), holds the live JAX package's
+    `predict_chunk_prefix` on its stored inputs."""
+    inputs, stored = stored_jax_case(label)
+    live = jax_prefix(*inputs)
+    assert set(live) == set(stored)
+    for key, value in live.items():
+        np.testing.assert_array_equal(
+            stored[key], value,
+            err_msg=f"{JAX_OUTPUTS.name}: {label}.out.{key} is stale; write it again "
+                    "(JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_imu_prefix.py jax)")
 
 
 def test_prefix_long_horizon_covariance():

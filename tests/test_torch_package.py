@@ -67,10 +67,11 @@ def test_scan_covers_the_parallel_package_and_it_ships():
 
 def test_port_has_both_kernel_sources():
     """Kernels A and B, the conditional graph nodes of the captured step, the
-    preprocessor's kernels, and the GN pass's lookup and increment."""
+    preprocessor's kernels, the GN pass's lookup and increment, and the IMU
+    prefix."""
     names = {p.name for p in (ROOT / "eskf_lio_torch" / "csrc").glob("*.cu")}
     assert names == {"gn_normal_eq.cu", "segscan.cu", "graph_cond.cu", "preprocess.cu",
-                     "gn_pass.cu"}
+                     "gn_pass.cu", "imu_prefix.cu"}
 
 
 # the port's own fields, after the JAX package's, with the defaults that
@@ -149,13 +150,13 @@ def test_kernel_modules_import_without_toolchain(tmp_path):
     tensors."""
     code = (
         "import sys, torch\n"
-        "from eskf_lio_torch.ops import segscan, gn_normal_eq, gn_pass\n"
+        "from eskf_lio_torch.ops import segscan, gn_normal_eq, gn_pass, imu_prefix\n"
         "import eskf_lio_torch.pipeline.replay\n"
         "k = torch.tensor([0, 0, 1], dtype=torch.int32)\n"
         "v = torch.ones(3, 2)\n"
         "assert segscan.segsum_sorted(k, v)[0].tolist() == [2.0, 2.0]\n"
         "assert segscan.KERNEL._lib is None and gn_normal_eq.KERNEL._lib is None\n"
-        "assert gn_pass.KERNEL._lib is None\n"
+        "assert gn_pass.KERNEL._lib is None and imu_prefix.KERNEL._lib is None\n"
         "assert segscan.KERNEL.launches == 0\n"
         "assert 'triton' not in sys.modules and 'jax' not in sys.modules\n"
     )

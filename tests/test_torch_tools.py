@@ -62,7 +62,7 @@ from eskf_lio_tpu.types import Pose as JPose, ProcessedScan as JScan
 torch.set_num_threads(2)
 # the launches of every kernel of the port counted by a CPU run: none
 NO_LAUNCHES = dict.fromkeys(
-    ("gn_normal_eq", "gn_pass", "segscan", "preprocess"), 0)
+    ("gn_normal_eq", "gn_pass", "segscan", "preprocess", "imu_prefix"), 0)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
