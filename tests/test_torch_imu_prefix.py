@@ -3,12 +3,13 @@
 
 On the CPU (tier 1): `predict_chunk_prefix` on CPU tensors gives what the
 plain chain gave before the kernel, bit for bit (the benchmark's frozen
-copy of it, `benchmark/reference/eskf.py`), on chunks recorded from both
-replay cells' generators (`tests/data/imu_prefix_chunks.npz`: mid360 at
-M = 64, hdl64-urban at M = 32), on random chunks of 1 to 64 samples and on
-the edge cases below; the wrapper raises on more than 64 samples (and on
-none), on a wrong shape or dtype and on tensors on more than one device,
-and on CPU tensors counts no launch.
+copy of it, `benchmark/reference/eskf.py`), on chunks recorded from the
+three replay cells' generators (`tests/data/imu_prefix_chunks.npz`: mid360
+at M = 64, hdl64-urban at M = 32, hilti2022-xt32's handheld walk at M = 64:
+41 samples, rates on three axes, tilted gravity, biases), on random chunks
+of 1 to 64 samples and on the edge cases below; the wrapper raises on more
+than 64 samples (and on none), on a wrong shape or dtype and on tensors on
+more than one device, and on CPU tensors counts no launch.
 
 `tests/data/imu_prefix_jax.npz` keeps the JAX package's
 `predict_chunk_prefix` on the recorded chunks, at M = 48 and on the edge
@@ -32,7 +33,7 @@ The file imports neither JAX nor the JAX package:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_imu_prefix.py
 
 Its data files are written by this file.  On the card, the recorded chunks
-(both replay cells' drivers for 3 s each, a state and chunk at fixed calls
+(the replay cells' drivers for 3 s each, a state and chunk at fixed calls
 of the replay step):
 
     PYTHONPATH=. python tests/test_torch_imu_prefix.py chunks [OUT.npz]
@@ -64,7 +65,8 @@ RECORDED = Path(__file__).parent / "data" / "imu_prefix_chunks.npz"
 JAX_OUTPUTS = Path(__file__).parent / "data" / "imu_prefix_jax.npz"
 # the recorded rows: each cell's replay step at calls `every` x RECORD_AT of
 # a run of RECORD_SECONDS at RECORD_SEED (`record_chunks`)
-RECORD_CELLS = (("mid360.replay", "mid360", 97), ("hdl64-urban.replay", "urban", 41))
+RECORD_CELLS = (("mid360.replay", "mid360", 97), ("hdl64-urban.replay", "urban", 41),
+                ("hilti2022-xt32.replay", "handheld", 43))
 RECORD_AT = (3, 7, 11, 13)
 RECORD_SEED = 20260101
 RECORD_SECONDS = 3.0
@@ -246,7 +248,7 @@ def assert_same_bits(got, want):
 
 def test_the_recorded_chunks_hold_both_cells_shapes():
     shapes = {c.split(".")[0]: _DATA[f"{c}.chunk.dt"].shape for c in RECORDED_CASES}
-    assert shapes == {"mid360": (64,), "urban": (32,)}
+    assert shapes == {"mid360": (64,), "urban": (32,), "handheld": (64,)}
     for c in RECORDED_CASES:
         valid = _DATA[f"{c}.chunk.valid"]
         # a real chunk: some valid samples, padding after them
